@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's LZMA2 decode path on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's LZMA2 decode and encode paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
 
-1. build: nvcc builds every kernel of the path (``csrc/*.cu``) for sm_90a;
-   the ``-Xptxas -v`` report (registers, shared memory, spills) is printed.
+1. build: nvcc builds every kernel of the paths (``csrc/*.cu``: K1
+   ``group_decode``, K2 ``range_encode``) for sm_90a; the ``-Xptxas -v``
+   report (registers, shared memory, spills) is printed.
 2. kernel vs plain: K1 on CUDA tensors against ``group_decode_plain`` on CPU
    copies of the same 16-lane batch (single- and multi-chunk groups, mid-group
    state resets, copy chunks, a group of more than 128 chunks, a lane of
@@ -21,13 +22,27 @@ Phases, each printed as one JSON line:
    the scheduler must split into four batches.
 4. big block: one 64 MiB group with a 16 MiB dictionary (the reference's
    default MT block, 4 x dict), several hundred chunks in one group.
+5. encode kernel vs plain: K2 on CUDA tensors against ``range_encode_plain``
+   on CPU copies of a batch of 16 lanes of 4-30 KB parsed into 4 KiB chunks,
+   a lane of zeros (rep and short-rep chains), a lane of ``x86_like`` data
+   (matched literals), a lane whose body does not fit ``out_cap`` (it must
+   fail alone) and an inactive lane; then 300 lanes of 1-3 KB at
+   lc=0/lp=4/pb=0 (several lanes per block, above 48 KB of shared memory).
+   Bodies, tab and status must be identical (tolerance 0), and every good
+   lane's bodies must equal the native coder's.
+6. encode main: ``encode_lzma2_device_coded(device="cuda")`` on the 128 MiB
+   of phase 3 in 1 MiB groups with a 1 MiB dictionary.  The stream must
+   equal ``encode_lzma2_mt``'s, decode to the original with Python's
+   ``lzma`` and with the port's K1 (``lzma2_uncompress``), with K2 launches
+   > 0 and every device lane ok; a step-by-step rerun checks that the
+   device bodies equal the native bodies.
 
-Streams are made with Python's ``lzma`` module (raw LZMA2, preset 6), one
-compression per group, so the original bytes are the ground truth.  Phases 3
-and 4 require output == original, K1 launches > 0, and no host fallback or
-lane retry.  The last line is the device summary; the line before the nvidia
-line lists the kernels with their launches, times and bounds.  Any failure
-exits non-zero.
+Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
+one compression per group, so the original bytes are the ground truth.
+Phases 3 and 4 require output == original, K1 launches > 0, and no host
+fallback or lane retry.  The last line is the device summary; the line
+before the nvidia line lists the kernels with their launches, times and
+bounds.  Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -294,6 +309,214 @@ def kernel_vs_plain(pool, device) -> dict:
     return res
 
 
+def parse_groups(pool, datas, sub_size: int, **props):
+    """Each of ``datas`` fast-parsed alone as one dict-reset group by the
+    port's native runtime: [(ops, chunk table, native bodies)]."""
+    from lzma_sdk_zliblike_tpu_torch import native
+    return list(pool.map(lambda d: native.lzma2_group_ops(
+        d, 1 << 16, sub_size=sub_size, **props), datas))
+
+
+def encode_compare(R, batch, out_cap: int, device, **props):
+    """K2 on CUDA copies of a CPU batch against the plain version on it:
+    bodies, tab and status must be identical (tolerance 0: the coder is
+    bit-exact).  Also returns the kernel's outputs on the CPU."""
+    import torch
+    t = time.perf_counter()
+    plain = R.range_encode_plain(*batch, out_cap, **props)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    h = R.submit_encode_groups(*[x.to(device) for x in batch],
+                               out_cap=out_cap, **props)
+    kern = [x.cpu() for x in (h.bodies, h.tab, h.status)]
+    res = {"lanes": int(batch[0].shape[0]),
+           "bodies_equal": bool(torch.equal(kern[0], plain[0])),
+           "tab_equal": bool(torch.equal(kern[1], plain[1])),
+           "status_equal": bool(torch.equal(kern[2], plain[2])),
+           "max_abs_err": int((kern[0].int() - plain[0].int()).abs().max()),
+           "plain_ms": plain_ms}
+    return res, kern
+
+
+def native_equal(parsed, kern, lanes) -> bool:
+    """The listed lanes are ok, and their bodies and tab equal the native
+    coder's."""
+    bodies, tab, status = kern
+    return all(
+        int(status[0, li]) == 1 and int(status[1, li]) == len(p[2])
+        and bodies[li, :len(p[2])].numpy().tobytes() == p[2]
+        and tab[li, :len(p[1])].tolist() == p[1][:, 2].tolist()
+        for li, p in ((li, parsed[li]) for li in lanes))
+
+
+def time_encode_kernel(R, tensors, out_cap: int, reps: int, **props) -> float:
+    """Mean ms of one K2 launch on resident inputs, by CUDA events."""
+    import torch
+    R.submit_encode_groups(*tensors, out_cap=out_cap, **props)   # warm-up
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        R.submit_encode_groups(*tensors, out_cap=out_cap, **props)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def encode_bound_ms(op_words: int, body_bytes: int, lanes: int,
+                    n_chunks: int) -> float:
+    """Least time for the encode on the card: op words, chunk tables and
+    flags read once, bodies, tab and status written once, at the HBM rate
+    (the work is serial per lane, far above this bound)."""
+    table_bytes = lanes * (2 * 4 * n_chunks + 4 + 3 * 4)
+    return (4 * op_words + body_bytes + table_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def encode_kernel_vs_plain(pool, device) -> dict:
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    cm = corpus_module()
+    text = cm.big_mixed(1 << 20, seed=3)
+    datas, a = [], 0
+    for i in range(16):                     # 4-30 KB of text
+        datas.append(text[a:a + 4096 + 1700 * i])
+        a += len(datas[-1])
+    datas += [bytes(20000), cm.x86_like(3000)]
+    good = list(range(len(datas)))
+    parsed = parse_groups(pool, datas, 4096)
+    # a lane of random bytes whose body does not fit out_cap
+    out_cap = max(len(p[2]) for p in parsed) + 512
+    over = len(datas)
+    parsed += parse_groups(pool, [cm.random_bytes(out_cap + 4096, seed=8)],
+                           4096)
+    ops, ends, act, _, _ = R.pack_ops_batch(            # + an inactive lane
+        [p[0] for p in parsed] + [[]], [p[1] for p in parsed] + [[]])
+    res, kern = encode_compare(R, (ops, ends, act), out_cap, device)
+    st = kern[2]
+    res.update({
+        "out_cap": out_cap, "chunks_max": max(len(p[1]) for p in parsed),
+        "ops_max": max(len(p[0]) // 2 for p in parsed),
+        "native_equal": native_equal(parsed, kern, good),
+        "overflow_lane_failed_alone": (
+            st[:, over].tolist() == [0, out_cap, R.ERR_OVERFLOW]
+            and all(int(st[0, li]) == 1 for li in good)),
+        "inactive_lane": st[:, over + 1].tolist(),
+        "kernel_ms": time_encode_kernel(
+            R, [x.to(device) for x in (ops, ends, act)], out_cap, reps=3)})
+    res["pass"] = (res["bodies_equal"] and res["tab_equal"]
+                   and res["status_equal"] and res["native_equal"]
+                   and res["overflow_lane_failed_alone"]
+                   and res["inactive_lane"] == [1, 0, 0]
+                   and res["chunks_max"] > 1)
+    # more than 2 x 132 lanes at lc+lp=4: blocks of 3 lanes need the raised
+    # dynamic shared-memory limit
+    props = {"lc": 0, "lp": 4, "pb": 0}
+    datas, a = [], 0
+    for i in range(300):
+        datas.append(text[a:a + 1024 + i * 37 % 2048])
+        a += len(datas[-1])
+    parsed = parse_groups(pool, datas, 1 << 16, **props)
+    ops, ends, act, cap, _ = R.pack_ops_batch([p[0] for p in parsed],
+                                              [p[1] for p in parsed])
+    w, kern = encode_compare(R, (ops, ends, act), cap, device, **props)
+    w["props"] = props
+    w["native_equal"] = native_equal(parsed, kern, range(len(parsed)))
+    w["pass"] = (w["bodies_equal"] and w["tab_equal"] and w["status_equal"]
+                 and w["native_equal"])
+    res["wide"] = w
+    res["max_abs_err"] = max(res["max_abs_err"], w["max_abs_err"])
+    res["pass"] = res["pass"] and w["pass"]
+    return res
+
+
+def encode_breakdown(data: bytes, device, pool):
+    """The encode path's steps, run one at a time with a synchronise after
+    each, timed on the host clock (ms).  Returns the batch's tensors on the
+    card (for timing the kernel alone), its out_cap, the breakdown and the
+    checks of the device bodies against the native ones."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch import native
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    from lzma_sdk_zliblike_tpu_torch.parallel import device_encode as DE
+    ms = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms[name] = (now - t) * 1e3
+        t = now
+    spans = [(a, min(a + MIB, len(data))) for a in range(0, len(data), MIB)]
+    parsed = list(pool.map(lambda sp: native.lzma2_group_ops(
+        data[sp[0]:sp[1]], MIB, sub_size=DE.SUB_CHUNK), spans))
+    lap("parse")
+    dev = [gi for gi, p in enumerate(parsed) if not DE.needs_copy_chunks(p[1])]
+    ops, ends, act, out_cap, nch = R.pack_ops_batch(
+        [parsed[gi][0] for gi in dev], [parsed[gi][1] for gi in dev])
+    tensors = [x.to(device) for x in (ops, ends, act)]
+    lap("pack_and_host_to_device")
+    h = R.submit_encode_groups(*tensors, out_cap=out_cap)
+    lap("kernel_wall")
+    bodies, ok, _ = R.finalize_encode(h, nch)
+    lap("device_to_host")
+    props_byte = (2 * 5 + 0) * 9 + 3                    # lc=3 lp=0 pb=2
+    b"".join(DE.frame_group(bodies[li], *spans[gi], DE.SUB_CHUNK, props_byte)
+             for li, gi in enumerate(dev))
+    lap("frame_and_join")
+    checks = {
+        "device_lanes": len(dev), "device_lanes_ok": bool(ok.all()),
+        "device_bodies_equal_native": all(
+            b"".join(bodies[li]) == parsed[gi][2]
+            for li, gi in enumerate(dev)),
+        "packets_per_lane_max": max(len(parsed[gi][0]) // 2 for gi in dev),
+        "packets_total": sum(len(parsed[gi][0]) // 2 for gi in dev),
+        "bound_ms": encode_bound_ms(
+            sum(len(parsed[gi][0]) for gi in dev),
+            sum(len(parsed[gi][2]) for gi in dev), len(dev), ends.shape[1])}
+    return tensors, out_cap, ms, checks
+
+
+def encode_main(data: bytes, device, pool) -> dict:
+    """The encode path once, with the counters set to 0 just before, then
+    its checks and the step-by-step breakdown."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch import (encode_lzma2_device_coded,
+                                             lzma2_uncompress)
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    from lzma_sdk_zliblike_tpu_torch.parallel.host_pool import encode_lzma2_mt
+    from lzma_sdk_zliblike_tpu_torch.utils.trace import TRACE
+    R.launches = 0
+    TRACE.reset()
+    t = time.perf_counter()
+    stream, prop = encode_lzma2_device_coded(data, dict_size=MIB,
+                                             chunk_size=MIB, device=device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    snap = TRACE.snapshot()
+    res = {"bytes": len(data), "packed": len(stream), "seconds": sec,
+           "mb_per_s": len(data) / sec / 1e6, "launches": R.launches,
+           "batches": snap.get("device_encode.batches", 0),
+           "host_groups": snap.get("device_encode.host_groups", 0)}
+    t = time.perf_counter()
+    ref, ref_prop = encode_lzma2_mt(data, dict_size=MIB, chunk_size=MIB)
+    res["host_mt_seconds"] = time.perf_counter() - t
+    res["equal_host_mt"] = stream == ref and prop == ref_prop
+    res["lzma_module_roundtrip"] = lzma.decompress(
+        stream, format=lzma.FORMAT_RAW,
+        filters=[{"id": lzma.FILTER_LZMA2, "dict_size": MIB}]) == data
+    res["k1_roundtrip"] = lzma2_uncompress(stream, prop, device=device) == data
+    tensors, out_cap, res["breakdown_ms"], checks = encode_breakdown(
+        data, device, pool)
+    res.update(checks)
+    res["kernel_ms"] = time_encode_kernel(R, tensors, out_cap, reps=3)
+    res["device_idle_share"] = 1 - res["kernel_ms"] / (sec * 1e3)
+    res["pass"] = (res["equal_host_mt"] and res["lzma_module_roundtrip"]
+                   and res["k1_roundtrip"] and res["launches"] > 0
+                   and res["device_lanes_ok"]
+                   and res["device_bodies_equal_native"])
+    return res
+
+
 def drive(stream: bytes, prop: int, data: bytes, device) -> dict:
     """One run of the main path with the counters set to 0 just before."""
     import torch
@@ -384,12 +607,12 @@ def main() -> int:
     for name, log in _build.ptxas_logs.items():
         for line in log.splitlines():
             print(f"ptxas[{name}]: {line}")
-    rep = _build.ptxas_logs.get("group_decode", "")
-    regs = re.findall(r"Used (\d+) registers", rep)
-    spills = re.findall(r"(\d+) bytes spill stores", rep)
+    regs = {n: [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+            for n, log in _build.ptxas_logs.items()}
+    spills = {n: [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
+              for n, log in _build.ptxas_logs.items()}
     emit({"phase": "build", "seconds": build_s, "libraries": libs,
-          "registers": [int(r) for r in regs],
-          "spill_store_bytes": [int(s) for s in spills], "pass": True})
+          "registers": regs, "spill_store_bytes": spills, "pass": True})
 
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
         # -- 2. kernel vs plain version ------------------------------------
@@ -444,6 +667,19 @@ def main() -> int:
     if not p4["pass"]:
         failed.append("bigblock")
 
+    # -- 5. encode kernel vs plain version ------------------------------------
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        p5 = encode_kernel_vs_plain(pool, device)
+        emit({"phase": "encode_kernel_vs_plain", **p5})
+        if not p5["pass"]:
+            failed.append("encode_kernel_vs_plain")
+
+        # -- 6. encode main: 128 MiB in 1 MiB groups --------------------------
+        p6 = encode_main(data, device, pool)
+    emit({"phase": "encode_main", **p6})
+    if not p6["pass"]:
+        failed.append("encode_main")
+
     emit({"kernels": [{
         "name": "group_decode (K1)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/group_decode.cu",
@@ -453,7 +689,16 @@ def main() -> int:
         "plain_ms": p2["plain_ms"], "plain_batch_kernel_ms": p2["kernel_ms"],
         "bound_ms": p3["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "iterations_max": p3["iterations_max"],
-        "bigblock_launches": p4["launches"]}]})
+        "bigblock_launches": p4["launches"]}, {
+        "name": "range_encode (K2)", "route": "cuda",
+        "source": "lzma_sdk_zliblike_tpu_torch/csrc/range_encode.cu",
+        "replaces": "lzma_sdk_zliblike_tpu/ops/pallas_encode.py:78",
+        "launches": p6["launches"], "matches_plain": p5["pass"],
+        "max_abs_err": p5["max_abs_err"], "ms": p6["kernel_ms"],
+        "plain_ms": p5["plain_ms"], "plain_batch_kernel_ms": p5["kernel_ms"],
+        "bound_ms": p6["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "packets_per_lane_max": p6["packets_per_lane_max"]}]})
     print(smi[0])
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

@@ -64,19 +64,14 @@ class GroupBatch:
     iterations: torch.Tensor | None   # int32 [S] packets per lane (kernel)
 
 
-def _check(src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb):
-    dev = src.device
-    n = src.shape[0] if src.dim() == 2 else -1
-    specs = (("src", src, torch.uint8, None),
-             ("pack_ends", pack_ends, torch.int32, None),
-             ("unpack_ends", unpack_ends, torch.int32, pack_ends.shape),
-             ("flags", flags, torch.int32, pack_ends.shape),
-             ("active", active, torch.int32, (n,)))
+def check_tensors(specs, dev) -> None:
+    """Raise unless each (name, tensor, dtype, shape or None) of ``specs`` is
+    a contiguous tensor of that dtype and shape on ``dev``."""
     for name, t, dtype, shape in specs:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, src on {dev}")
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if shape is not None and tuple(t.shape) != tuple(shape):
@@ -84,6 +79,24 @@ def _check(src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb):
                              f"expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def check_props(lc: int, lp: int, pb: int) -> None:
+    """The kernels' models are sized for LZMA2's lc + lp <= 4."""
+    if not (0 <= lc <= 8 and 0 <= lp <= 4 and 0 <= pb <= 4) or lc + lp > 4:
+        raise ParamError(f"unsupported lc/lp/pb {lc}/{lp}/{pb} "
+                         "(LZMA2 needs lc + lp <= 4)")
+
+
+def _check(src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb):
+    n = src.shape[0] if src.dim() == 2 else -1
+    check_tensors((("src", src, torch.uint8, None),
+                   ("pack_ends", pack_ends, torch.int32, None),
+                   ("unpack_ends", unpack_ends, torch.int32, pack_ends.shape),
+                   ("flags", flags, torch.int32, pack_ends.shape),
+                   ("active", active, torch.int32, (n,))), src.device)
     if src.dim() != 2 or src.shape[1] < 1:
         raise ValueError(f"src must be [S, pack_cap>0], got {tuple(src.shape)}")
     if pack_ends.dim() != 2 or pack_ends.shape[0] != n or pack_ends.shape[1] < 1:
@@ -91,11 +104,7 @@ def _check(src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb):
                          f"{tuple(pack_ends.shape)}")
     if dic_cap < 1:
         raise ValueError(f"dic_cap must be positive, got {dic_cap}")
-    if not (0 <= lc <= 8 and 0 <= lp <= 4 and 0 <= pb <= 4) or lc + lp > 4:
-        raise ParamError(f"unsupported lc/lp/pb {lc}/{lp}/{pb} "
-                         "(LZMA2 needs lc + lp <= 4)")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+    check_props(lc, lp, pb)
 
 
 def prep_groups(src, pack_ends, unpack_ends, flags, active, *, device):

@@ -1,4 +1,4 @@
-"""Device-memory budget for decode batches.
+"""Device-memory budget for decode and encode batches.
 
 A decode batch holds its whole group output (the dictionary) plus the packed
 source per lane on the card, and the scheduler keeps ``INFLIGHT`` batches
@@ -15,6 +15,9 @@ The kernel runs one thread per lane, so unlike the TPU kernel it wants as
 many lanes as there are groups, one group each: more lanes beat longer
 lanes.  The lane count is the number of groups, capped by the budget; a
 stream whose groups do not fit is decoded in several batches.
+
+An encode batch (kernel K2) holds each lane's op words and its body buffer;
+``encode_lanes`` sizes it by the same budget, with the same ``INFLIGHT``.
 """
 
 from __future__ import annotations
@@ -23,12 +26,13 @@ import os
 
 import torch
 
-INFLIGHT = 2                 # decode batches on the device at once
+INFLIGHT = 2                 # batches on the device at once
 CPU_BUDGET = 8 << 30         # bytes, when no card is involved
 
 
 def device_budget(device) -> int:
-    """Bytes a decode may hold on ``device`` (env override LZT_HBM_BUDGET)."""
+    """Bytes a decode or encode may hold on ``device`` (env override
+    LZT_HBM_BUDGET)."""
     env = os.environ.get("LZT_HBM_BUDGET")
     if env:
         return int(env)
@@ -73,3 +77,21 @@ def shape_for_groups(groups, *, device="cuda", hbm_budget: int | None = None):
                 pick_lanes(pack_cap, dic_cap, hbm_budget=hbm_budget))
     return BatchShape(n_lanes=lanes, pack_cap=pack_cap, dic_cap=dic_cap,
                       groups_per_lane=1)
+
+
+def encode_batch_bytes(n_lanes: int, op_cap: int, out_cap: int) -> int:
+    """Device bytes ``INFLIGHT`` encode batches of ``n_lanes`` lanes hold.
+
+    A lane holds ``op_cap`` int32 op words and ``out_cap`` body bytes; the
+    chunk tables and status are small and ignored."""
+    return n_lanes * (4 * op_cap + out_cap) * INFLIGHT
+
+
+def encode_lanes(n_groups: int, op_cap: int, out_cap: int, *, device="cuda",
+                 hbm_budget: int | None = None) -> int:
+    """Lanes of an encode batch: one per group, capped by the budget (at
+    least 1)."""
+    if hbm_budget is None:
+        hbm_budget = device_budget(device)
+    return max(1, min(n_groups, hbm_budget
+                      // encode_batch_bytes(1, op_cap, out_cap)))

@@ -12,12 +12,9 @@ are exact: bytes equal, ok equal, consumed equal where ok.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import importlib.util
 import os
 import random
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -402,25 +399,16 @@ def test_input_checks(single_chunk):
 @pytest.fixture(scope="module")
 def cpu_harness():
     """csrc/cpu_harness.cc (the kernel's per-lane code, lzma_lane.cuh) built
-    with g++ into build/."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    with g++ into build/ (tests/torch_cpu_harness.py)."""
+    spec = importlib.util.spec_from_file_location(
+        "lzt_torch_cpu_harness", os.path.join(REPO, "tests",
+                                              "torch_cpu_harness.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = mod.build()
+    if lib is None:
         pytest.skip("g++ not available")
-    csrc = os.path.join(REPO, "lzma_sdk_zliblike_tpu_torch", "csrc")
-    h = hashlib.sha256()
-    for name in ("cpu_harness.cc", "lzma_lane.cuh"):
-        with open(os.path.join(csrc, name), "rb") as f:
-            h.update(f.read())
-    out_dir = os.path.join(REPO, "build", "torch_kernels_cpu")
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"libcpu_harness_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(lib):
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
-                        tmp, os.path.join(csrc, "cpu_harness.cc")],
-                       check=True, capture_output=True, timeout=300)
-        os.replace(tmp, lib)
-    fn = ctypes.CDLL(lib).lzt_group_decode_cpu
+    fn = lib.lzt_group_decode_cpu
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 3
