@@ -27,15 +27,20 @@ Phases, each printed as one JSON line:
    a lane of zeros (rep and short-rep chains), a lane of ``x86_like`` data
    (matched literals), a lane whose body does not fit ``out_cap`` (it must
    fail alone) and an inactive lane; then 300 lanes of 1-3 KB at
-   lc=0/lp=4/pb=0 (several lanes per block, above 48 KB of shared memory).
-   Bodies, tab and status must be identical (tolerance 0), and every good
-   lane's bodies must equal the native coder's.
+   lc=0/lp=4/pb=0 (several lanes per block, above 48 KB of shared memory);
+   then 6 lanes at the main path's shapes: 20-160 KB prefixes of its first
+   groups, parsed with its 1 MiB dictionary into 48 KiB chunks (up to 4 per
+   lane), coded into a buffer of its ``out_cap``.  Bodies, tab and status must be identical
+   (tolerance 0), and every good lane's bodies must equal the native
+   coder's.
 6. encode main: ``encode_lzma2_device_coded(device="cuda")`` on the 128 MiB
    of phase 3 in 1 MiB groups with a 1 MiB dictionary.  The stream must
    equal ``encode_lzma2_mt``'s, decode to the original with Python's
    ``lzma`` and with the port's K1 (``lzma2_uncompress``), with K2 launches
-   > 0 and every device lane ok; a step-by-step rerun checks that the
-   device bodies equal the native bodies.
+   > 0 and every group coded on the card (the entry point raises on a lane
+   that fails or whose bodies differ from the native coder's).  Its step
+   breakdown, kernel time (CUDA events) and bound are read from that run's
+   trace counters.
 
 Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
 one compression per group, so the original bytes are the ground truth.
@@ -309,12 +314,13 @@ def kernel_vs_plain(pool, device) -> dict:
     return res
 
 
-def parse_groups(pool, datas, sub_size: int, **props):
+def parse_groups(pool, datas, sub_size: int, dict_size: int = 1 << 16,
+                 **props):
     """Each of ``datas`` fast-parsed alone as one dict-reset group by the
     port's native runtime: [(ops, chunk table, native bodies)]."""
     from lzma_sdk_zliblike_tpu_torch import native
     return list(pool.map(lambda d: native.lzma2_group_ops(
-        d, 1 << 16, sub_size=sub_size, **props), datas))
+        d, dict_size, sub_size=sub_size, **props), datas))
 
 
 def encode_compare(R, batch, out_cap: int, device, **props):
@@ -363,17 +369,9 @@ def time_encode_kernel(R, tensors, out_cap: int, reps: int, **props) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def encode_bound_ms(op_words: int, body_bytes: int, lanes: int,
-                    n_chunks: int) -> float:
-    """Least time for the encode on the card: op words, chunk tables and
-    flags read once, bodies, tab and status written once, at the HBM rate
-    (the work is serial per lane, far above this bound)."""
-    table_bytes = lanes * (2 * 4 * n_chunks + 4 + 3 * 4)
-    return (4 * op_words + body_bytes + table_bytes) / HBM_BYTES_PER_S * 1e3
-
-
-def encode_kernel_vs_plain(pool, device) -> dict:
+def encode_kernel_vs_plain(pool, device, data: bytes) -> dict:
     from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    from lzma_sdk_zliblike_tpu_torch.parallel import device_encode as DE
     cm = corpus_module()
     text = cm.big_mixed(1 << 20, seed=3)
     datas, a = [], 0
@@ -423,62 +421,34 @@ def encode_kernel_vs_plain(pool, device) -> dict:
     w["pass"] = (w["bodies_equal"] and w["tab_equal"] and w["status_equal"]
                  and w["native_equal"])
     res["wide"] = w
-    res["max_abs_err"] = max(res["max_abs_err"], w["max_abs_err"])
-    res["pass"] = res["pass"] and w["pass"]
+    # the main path's shapes: prefixes of its first groups (``data``), with
+    # its dictionary and chunk size, into a buffer of its out_cap.  The plain
+    # version takes a few ms per op of the longest lane, so each prefix is
+    # cut to about 20,000 ops: group 1 starts with near-random bytes (one
+    # literal per byte), group 2 with long repeats (389 ops in 100 KB)
+    datas = [data[g * MIB:g * MIB + n] for g, n in enumerate(
+        (160_000, 20_000, 100_000, 80_000, 160_000, 160_000))]
+    parsed = parse_groups(pool, datas, DE.SUB_CHUNK, dict_size=MIB)
+    ops, ends, act, _, _ = R.pack_ops_batch([p[0] for p in parsed],
+                                            [p[1] for p in parsed])
+    m, kern = encode_compare(R, (ops, ends, act), R.out_cap_for(MIB), device)
+    m.update({"out_cap": R.out_cap_for(MIB),
+              "chunks_max": max(len(p[1]) for p in parsed),
+              "ops_max": max(len(p[0]) // 2 for p in parsed),
+              "native_equal": native_equal(parsed, kern, range(len(parsed)))})
+    m["pass"] = (m["bodies_equal"] and m["tab_equal"] and m["status_equal"]
+                 and m["native_equal"] and m["chunks_max"] >= 3)
+    res["main_shape"] = m
+    for r in (w, m):
+        res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+        res["pass"] = res["pass"] and r["pass"]
     return res
 
 
-def encode_breakdown(data: bytes, device, pool):
-    """The encode path's steps, run one at a time with a synchronise after
-    each, timed on the host clock (ms).  Returns the batch's tensors on the
-    card (for timing the kernel alone), its out_cap, the breakdown and the
-    checks of the device bodies against the native ones."""
-    import torch
-    from lzma_sdk_zliblike_tpu_torch import native
-    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
-    from lzma_sdk_zliblike_tpu_torch.parallel import device_encode as DE
-    ms = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        ms[name] = (now - t) * 1e3
-        t = now
-    spans = [(a, min(a + MIB, len(data))) for a in range(0, len(data), MIB)]
-    parsed = list(pool.map(lambda sp: native.lzma2_group_ops(
-        data[sp[0]:sp[1]], MIB, sub_size=DE.SUB_CHUNK), spans))
-    lap("parse")
-    dev = [gi for gi, p in enumerate(parsed) if not DE.needs_copy_chunks(p[1])]
-    ops, ends, act, out_cap, nch = R.pack_ops_batch(
-        [parsed[gi][0] for gi in dev], [parsed[gi][1] for gi in dev])
-    tensors = [x.to(device) for x in (ops, ends, act)]
-    lap("pack_and_host_to_device")
-    h = R.submit_encode_groups(*tensors, out_cap=out_cap)
-    lap("kernel_wall")
-    bodies, ok, _ = R.finalize_encode(h, nch)
-    lap("device_to_host")
-    props_byte = (2 * 5 + 0) * 9 + 3                    # lc=3 lp=0 pb=2
-    b"".join(DE.frame_group(bodies[li], *spans[gi], DE.SUB_CHUNK, props_byte)
-             for li, gi in enumerate(dev))
-    lap("frame_and_join")
-    checks = {
-        "device_lanes": len(dev), "device_lanes_ok": bool(ok.all()),
-        "device_bodies_equal_native": all(
-            b"".join(bodies[li]) == parsed[gi][2]
-            for li, gi in enumerate(dev)),
-        "packets_per_lane_max": max(len(parsed[gi][0]) // 2 for gi in dev),
-        "packets_total": sum(len(parsed[gi][0]) // 2 for gi in dev),
-        "bound_ms": encode_bound_ms(
-            sum(len(parsed[gi][0]) for gi in dev),
-            sum(len(parsed[gi][2]) for gi in dev), len(dev), ends.shape[1])}
-    return tensors, out_cap, ms, checks
-
-
-def encode_main(data: bytes, device, pool) -> dict:
-    """The encode path once, with the counters set to 0 just before, then
-    its checks and the step-by-step breakdown."""
+def encode_main(data: bytes, device) -> dict:
+    """The encode path once, with the counters set to 0 just before; its
+    step breakdown, kernel time and bound come from that run's trace, then
+    its checks."""
     import torch
     from lzma_sdk_zliblike_tpu_torch import (encode_lzma2_device_coded,
                                              lzma2_uncompress)
@@ -493,10 +463,29 @@ def encode_main(data: bytes, device, pool) -> dict:
     torch.cuda.synchronize()
     sec = time.perf_counter() - t
     snap = TRACE.snapshot()
+    launches = R.launches
+
+    def timer_ms(name):
+        return snap.get(name, {}).get("total_s", 0.0) * 1e3
+    groups = -(-len(data) // MIB)
     res = {"bytes": len(data), "packed": len(stream), "seconds": sec,
-           "mb_per_s": len(data) / sec / 1e6, "launches": R.launches,
+           "mb_per_s": len(data) / sec / 1e6, "launches": launches,
            "batches": snap.get("device_encode.batches", 0),
-           "host_groups": snap.get("device_encode.host_groups", 0)}
+           "host_groups": snap.get("device_encode.host_groups", 0),
+           "device_lanes": snap.get("device_encode.lanes", 0),
+           "ops_per_lane_max": snap.get("device_encode.ops_per_lane_max", 0),
+           "kernel_ms": snap.get("range_encode.kernel_ms", 0.0),
+           "breakdown_ms": {
+               "parse": timer_ms("device_encode.parse"),
+               "pack_and_host_to_device": timer_ms(
+                   "device_encode.pack_and_host_to_device"),
+               "wait_for_kernel": timer_ms("range_encode.wait"),
+               "device_to_host": timer_ms("range_encode.device_to_host"),
+               "frame_and_join": timer_ms("device_encode.frame_and_join")},
+           "kernel_bytes": (snap.get("device_encode.kernel_bytes_read", 0)
+                            + snap.get("range_encode.bytes_written", 0))}
+    res["bound_ms"] = res["kernel_bytes"] / HBM_BYTES_PER_S * 1e3
+    res["device_idle_share"] = 1 - res["kernel_ms"] / (sec * 1e3)
     t = time.perf_counter()
     ref, ref_prop = encode_lzma2_mt(data, dict_size=MIB, chunk_size=MIB)
     res["host_mt_seconds"] = time.perf_counter() - t
@@ -505,15 +494,10 @@ def encode_main(data: bytes, device, pool) -> dict:
         stream, format=lzma.FORMAT_RAW,
         filters=[{"id": lzma.FILTER_LZMA2, "dict_size": MIB}]) == data
     res["k1_roundtrip"] = lzma2_uncompress(stream, prop, device=device) == data
-    tensors, out_cap, res["breakdown_ms"], checks = encode_breakdown(
-        data, device, pool)
-    res.update(checks)
-    res["kernel_ms"] = time_encode_kernel(R, tensors, out_cap, reps=3)
-    res["device_idle_share"] = 1 - res["kernel_ms"] / (sec * 1e3)
     res["pass"] = (res["equal_host_mt"] and res["lzma_module_roundtrip"]
-                   and res["k1_roundtrip"] and res["launches"] > 0
-                   and res["device_lanes_ok"]
-                   and res["device_bodies_equal_native"])
+                   and res["k1_roundtrip"] and launches > 0
+                   and res["device_lanes"] + res["host_groups"] == groups
+                   and res["device_lanes"] > 0 and res["kernel_ms"] > 0)
     return res
 
 
@@ -669,13 +653,13 @@ def main() -> int:
 
     # -- 5. encode kernel vs plain version ------------------------------------
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
-        p5 = encode_kernel_vs_plain(pool, device)
-        emit({"phase": "encode_kernel_vs_plain", **p5})
-        if not p5["pass"]:
-            failed.append("encode_kernel_vs_plain")
+        p5 = encode_kernel_vs_plain(pool, device, data)
+    emit({"phase": "encode_kernel_vs_plain", **p5})
+    if not p5["pass"]:
+        failed.append("encode_kernel_vs_plain")
 
-        # -- 6. encode main: 128 MiB in 1 MiB groups --------------------------
-        p6 = encode_main(data, device, pool)
+    # -- 6. encode main: 128 MiB in 1 MiB groups ------------------------------
+    p6 = encode_main(data, device)
     emit({"phase": "encode_main", **p6})
     if not p6["pass"]:
         failed.append("encode_main")
@@ -697,8 +681,8 @@ def main() -> int:
         "max_abs_err": p5["max_abs_err"], "ms": p6["kernel_ms"],
         "plain_ms": p5["plain_ms"], "plain_batch_kernel_ms": p5["kernel_ms"],
         "bound_ms": p6["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
-        "packets_per_lane_max": p6["packets_per_lane_max"]}]})
+        "library_ms": None, "ops_per_lane_max": p6["ops_per_lane_max"],
+        "main_shape_plain_ms": p5["main_shape"]["plain_ms"]}]})
     print(smi[0])
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

@@ -1,7 +1,7 @@
 // Per-lane LZMA range encode: one dict-reset group's op records replayed
 // through the adaptive model and the carry/cache range coder, the semantics
-// of models/lzma/op_replay.py (LzmaEnc.c:456-573 range coder, :1733-1893
-// symbol coding).  range_encode.cu runs it as the body of one CUDA thread;
+// of the JAX package's models/lzma/op_replay.py (LzmaEnc.c:456-573 range
+// coder, :1733-1893 symbol coding).  range_encode.cu runs it as the body of one CUDA thread;
 // cpu_harness.cc builds the very same code with g++ so the tests can run it
 // on a machine without a GPU.
 //

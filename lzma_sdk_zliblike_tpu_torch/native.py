@@ -92,11 +92,10 @@ def _as_u8p(b: bytes):
     return ctypes.cast(ctypes.c_char_p(bytes(b)), ctypes.POINTER(ctypes.c_uint8))
 
 
-def lzma2_encode(data: bytes, dict_size: int, chunk_size: int | None,
-                 parallel: bool, lc: int = 3, lp: int = 0, pb: int = 2,
-                 effort: int = 9) -> tuple[bytes, int]:
-    """Raw LZMA2 stream of ``data`` (dict-reset groups of ``chunk_size``
-    when ``parallel``), ending with the end byte; returns (stream, prop)."""
+def lzma2_encode(data: bytes, dict_size: int, chunk_size: int, lc: int = 3,
+                 lp: int = 0, pb: int = 2) -> tuple[bytes, int]:
+    """Raw LZMA2 stream of ``data`` in dict-reset groups of ``chunk_size``,
+    at effort 9, ending with the end byte; returns (stream, prop)."""
     lib = _load()
     cap = len(data) + len(data) // 2 + 4096 + 8 * (len(data) // 49152 + 2)
     dst = ctypes.create_string_buffer(cap)
@@ -105,8 +104,7 @@ def lzma2_encode(data: bytes, dict_size: int, chunk_size: int | None,
     r = lib.lzt_lzma2_encode(
         _as_u8p(data), len(data),
         ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)), ctypes.byref(n),
-        dict_size, chunk_size or 0, 1 if parallel else 0,
-        lc, lp, pb, effort, ctypes.byref(prop))
+        dict_size, chunk_size, 1, lc, lp, pb, 9, ctypes.byref(prop))
     raise_for_sres(r)
     return dst.raw[:n.value], prop.value
 

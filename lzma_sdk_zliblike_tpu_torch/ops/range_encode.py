@@ -19,7 +19,10 @@ encoder's.  Per lane (the contract of ``csrc/lzma_enc_lane.cuh``):
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/range_encode.cu``) or raises; on a CPU tensor it runs the plain
 version, ``range_encode_plain``, a lane-batched lockstep encoder on torch
-tensors.  ``launches`` counts kernel launches.
+tensors.  ``launches`` counts kernel launches.  Each launch is bracketed by
+two CUDA events; ``finalize_encode`` adds the time between them to the
+``range_encode.kernel_ms`` counter and times its wait for the kernel and
+its copy to the host (``utils/trace.TRACE``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..models.lzma import spec as S
+from ..utils.trace import TRACE
 from .group_decode import check_props, check_tensors
 
 launches = 0   # K2 launches on the card; set to 0 to start a count
@@ -52,6 +56,8 @@ class EncodeBatch:
     bodies: torch.Tensor       # uint8 [S, out_cap]
     tab: torch.Tensor          # int32 [S, C]
     status: torch.Tensor       # int32 [3, S]: ok, bytes, err
+    start: torch.cuda.Event | None = None   # around the launch, on the card
+    end: torch.cuda.Event | None = None
 
 
 def out_cap_for(max_unpack: int) -> int:
@@ -129,14 +135,18 @@ def submit_encode_groups(ops: torch.Tensor, op_ends: torch.Tensor,
         tab = torch.zeros((n, n_chunks), dtype=torch.int32, device=dev)
         status = torch.empty((3, n), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         rc = fn(ops.data_ptr(), ops.shape[1], op_ends.data_ptr(), n_chunks,
                 active.data_ptr(), bodies.data_ptr(), out_cap, tab.data_ptr(),
                 status[0].data_ptr(), status[1].data_ptr(),
                 status[2].data_ptr(), n, lc, lp, pb, stream)
+        end.record()
     if rc != 0:
         raise RuntimeError(f"range_encode kernel launch failed: CUDA error {rc}")
     launches += 1
-    return EncodeBatch(bodies, tab, status)
+    return EncodeBatch(bodies, tab, status, start, end)
 
 
 def finalize_encode(handle: EncodeBatch, lane_nchunks):
@@ -145,10 +155,18 @@ def finalize_encode(handle: EncodeBatch, lane_nchunks):
     Returns ``(bodies, ok, err)``: bodies[s] is the list of lane s's chunk
     bodies (None where the lane failed), ok a bool and err an int32 numpy
     array [S].  Only the bytes the lanes wrote leave the device."""
-    status = handle.status.cpu().numpy()
-    used = int(status[1].max(initial=0))
-    flat = handle.bodies[:, :used].cpu().numpy()
-    tab = handle.tab.cpu().numpy()
+    if handle.end is not None:
+        with TRACE.timer("range_encode.wait"):
+            handle.end.synchronize()
+        TRACE.add("range_encode.kernel_ms",
+                  handle.start.elapsed_time(handle.end))
+    with TRACE.timer("range_encode.device_to_host"):
+        status = handle.status.cpu().numpy()
+        used = int(status[1].max(initial=0))
+        flat = handle.bodies[:, :used].cpu().numpy()
+        tab = handle.tab.cpu().numpy()
+    TRACE.add("range_encode.bytes_written",
+              int(status[1].sum()) + 4 * (tab.size + status.size))
     ok = status[0] != 0
     bodies = []
     for s, nch in enumerate(lane_nchunks):

@@ -14,9 +14,17 @@ A group that needs LZMA2 copy chunks (some native body is at least
 ``min(unpack, 65536)`` bytes) is encoded whole by the host encoder, which
 alone writes copy chunks; the choice is made from the parse's body column
 before the launch (``device_encode.host_groups`` counts them).  A lane the
-kernel fails is a kernel fault and raises: it is not re-encoded on the host.
+kernel fails, or whose bodies differ from the ones the parse returned, is a
+kernel fault and raises: it is not re-encoded on the host.
 
 ``ctypes`` calls release the GIL, so the parse runs in parallel on the pool.
+
+Steps and sizes go to ``utils/trace.TRACE``: timers ``device_encode.parse``,
+``.pack_and_host_to_device``, ``.frame_and_join`` (with
+``range_encode.wait`` and ``.device_to_host`` from ``finalize_encode``);
+counters ``device_encode.batches``, ``.host_groups``, ``.lanes``,
+``.kernel_bytes_read`` (op words, chunk ends and flags the kernel reads)
+and ``.ops_per_lane_max``.
 """
 
 from __future__ import annotations
@@ -113,24 +121,31 @@ def encode_lzma2_device_coded(data: bytes, *, dict_size: int = 1 << 20,
     def host_group(span):
         start, end = span
         stream, _ = native.lzma2_encode(data[start:end], dict_size,
-                                        chunk_size, True, lc=lc, lp=lp,
-                                        pb=pb, effort=9)
+                                        chunk_size, lc=lc, lp=lp, pb=pb)
         return stream[:-1]
 
     def finish(handle, batch, lane_nchunks):
         bodies, ok, err = R.finalize_encode(handle, lane_nchunks)
-        for li, gi in enumerate(batch):
-            if not ok[li]:
-                raise RuntimeError(
-                    f"range-encode kernel failed dict-reset group {gi} "
-                    f"(err {int(err[li])}) that the host parsed: a kernel fault")
-            results[gi] = frame_group(bodies[li], *spans[gi], sub, props_byte)
+        with TRACE.timer("device_encode.frame_and_join"):
+            for li, gi in enumerate(batch):
+                if not ok[li]:
+                    raise RuntimeError(
+                        f"range-encode kernel failed dict-reset group {gi} "
+                        f"(err {int(err[li])}) that the host parsed: a "
+                        "kernel fault")
+                if b"".join(bodies[li]) != parsed[gi][2]:
+                    raise RuntimeError(
+                        f"range-encode kernel's bodies for dict-reset group "
+                        f"{gi} differ from the parse's: a kernel fault")
+                results[gi] = frame_group(bodies[li], *spans[gi], sub,
+                                          props_byte)
         if progress is not None:
             progress(sum(e - s for (s, e), r in zip(spans, results) if r),
                      sum(len(r) for r in results if r))
 
     with ThreadPoolExecutor(normalize_threads(threads, len(spans))) as pool:
-        parsed = list(pool.map(parse_group, spans))
+        with TRACE.timer("device_encode.parse"):
+            parsed = list(pool.map(parse_group, spans))
         host = [gi for gi, p in enumerate(parsed) if needs_copy_chunks(p[1])]
         host_parts = pool.map(host_group, [spans[gi] for gi in host])
         TRACE.add("device_encode.host_groups", len(host))
@@ -144,16 +159,23 @@ def encode_lzma2_device_coded(data: bytes, *, dict_size: int = 1 << 20,
                 batch = dev[base:base + lanes]
                 if len(pending) == INFLIGHT:
                     finish(*pending.popleft())
-                ops, op_ends, active, out_cap, nch = R.pack_ops_batch(
-                    [parsed[gi][0] for gi in batch],
-                    [parsed[gi][1] for gi in batch])
+                with TRACE.timer("device_encode.pack_and_host_to_device"):
+                    ops, op_ends, active, out_cap, nch = R.pack_ops_batch(
+                        [parsed[gi][0] for gi in batch],
+                        [parsed[gi][1] for gi in batch])
+                    tensors = [x.to(device) for x in (ops, op_ends, active)]
                 TRACE.add("device_encode.batches")
+                TRACE.add("device_encode.lanes", len(batch))
+                TRACE.add("device_encode.kernel_bytes_read", 4 * (
+                    int(op_ends[:, -1].sum()) + op_ends.numel() + len(batch)))
+                TRACE.peak("device_encode.ops_per_lane_max",
+                           max(len(parsed[gi][0]) for gi in batch) // 2)
                 handle = R.submit_encode_groups(
-                    ops.to(device), op_ends.to(device), active.to(device),
-                    out_cap=out_cap, lc=lc, lp=lp, pb=pb)
+                    *tensors, out_cap=out_cap, lc=lc, lp=lp, pb=pb)
                 pending.append((handle, batch, nch))
             while pending:
                 finish(*pending.popleft())
         for gi, part in zip(host, host_parts):
             results[gi] = part
-    return b"".join(results) + b"\x00", prop  # type: ignore[arg-type]
+    with TRACE.timer("device_encode.frame_and_join"):
+        return b"".join(results) + b"\x00", prop  # type: ignore[arg-type]

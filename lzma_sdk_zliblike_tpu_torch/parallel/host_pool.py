@@ -26,10 +26,10 @@ def normalize_threads(threads: int | None, n_blocks: int) -> int:
 
 
 def encode_lzma2_mt(data: bytes, *, dict_size: int, chunk_size: int,
-                    threads: int | None = None, effort: int = 9,
-                    lc: int = 3, lp: int = 0, pb: int = 2,
-                    progress=None) -> tuple[bytes, int]:
-    """Parallel LZMA2 encode: each dict-reset group is one work item.
+                    threads: int | None = None, lc: int = 3, lp: int = 0,
+                    pb: int = 2, progress=None) -> tuple[bytes, int]:
+    """Parallel LZMA2 encode at effort 9: each dict-reset group is one work
+    item.
 
     Returns ``(stream, dict_prop)``; output is byte-identical to the
     single-threaded parallel-groups encoder (same groups, same coder), so
@@ -50,8 +50,7 @@ def encode_lzma2_mt(data: bytes, *, dict_size: int, chunk_size: int,
     def encode_block(span):
         start, end = span
         stream, prop = native.lzma2_encode(
-            data[start:end], dict_size, chunk_size, True,
-            lc=lc, lp=lp, pb=pb, effort=effort)
+            data[start:end], dict_size, chunk_size, lc=lc, lp=lp, pb=pb)
         prop_holder.setdefault("prop", prop)
         return stream[:-1]  # strip the per-call end byte
 

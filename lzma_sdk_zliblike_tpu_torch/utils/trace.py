@@ -39,6 +39,11 @@ class Tracer:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + value
 
+    def peak(self, name: str, value: float) -> None:
+        """Counter ``name`` becomes the largest value it was given."""
+        with self._lock:
+            self._counters[name] = max(self._counters.get(name, value), value)
+
     @contextmanager
     def timer(self, name: str):
         t0 = time.monotonic()

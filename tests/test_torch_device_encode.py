@@ -139,6 +139,51 @@ def test_failed_lane_raises(monkeypatch):
                                     device="cpu")
 
 
+def test_bodies_that_differ_from_the_parse_raise(monkeypatch):
+    """A lane the kernel reports ok whose bodies differ from the native
+    bodies of the parse is a kernel fault too."""
+    plain = R.range_encode_plain
+
+    def corrupting(*args):
+        bodies, tab, status = plain(*args)
+        bodies = bodies.clone()
+        bodies[1, 3] ^= 0x40
+        return bodies, tab, status
+    monkeypatch.setattr(R, "range_encode_plain", corrupting)
+    with pytest.raises(RuntimeError, match="group 1 differ"):
+        P.encode_lzma2_device_coded(big_mixed(4_000, seed=18),
+                                    dict_size=1 << 16, chunk_size=1 << 11,
+                                    device="cpu")
+
+
+def test_trace_counts_the_kernels_work(mixed):
+    """The trace of one call holds the steps and the bytes the kernel reads
+    and writes, as the native parse of the same groups gives them."""
+    data, _, _, snap = mixed
+    chunk, dict_size = 1 << 13, 1 << 16
+    parsed = [JN.lzma2_group_ops(data[a:a + chunk], dict_size,
+                                 sub_size=chunk)
+              for a in range(0, len(data), chunk)]
+    dev = [p for p in parsed if not DE.needs_copy_chunks(p[1])]
+    lanes, n_chunks = len(dev), max(len(p[1]) for p in dev)
+    assert snap["device_encode.lanes"] == lanes
+    assert lanes + snap["device_encode.host_groups"] == len(parsed)
+    assert snap["device_encode.ops_per_lane_max"] == max(
+        len(p[0]) for p in dev) // 2
+    assert snap["device_encode.kernel_bytes_read"] == 4 * (
+        sum(len(p[0]) for p in dev) + lanes * n_chunks + lanes)
+    assert snap["range_encode.bytes_written"] == sum(
+        len(p[2]) for p in dev) + 4 * (lanes * n_chunks + 3 * lanes)
+    for name in ("device_encode.parse", "device_encode.pack_and_host_to_device",
+                 "range_encode.device_to_host"):
+        assert snap[name]["count"] == 1
+    assert snap["device_encode.frame_and_join"]["count"] == 2
+    assert "range_encode.kernel_ms" not in snap       # no launch on the CPU
+    TRACE.peak("test.peak", 3)
+    TRACE.peak("test.peak", 2)
+    assert TRACE.snapshot()["test.peak"] == 3
+
+
 def test_budget_bounds_batches_on_device(monkeypatch):
     """Under a budget of two lanes the groups go in several batches, at most
     INFLIGHT of them live at once, each within its share; progress is

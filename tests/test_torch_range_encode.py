@@ -25,8 +25,6 @@ from lzma_sdk_zliblike_tpu.models.lzma.encoder_ref import \
     RangeEncoder as JRangeEncoder
 from lzma_sdk_zliblike_tpu.models.lzma.spec import LzmaProps as JProps
 from lzma_sdk_zliblike_tpu_torch import native as N
-from lzma_sdk_zliblike_tpu_torch.models.lzma import op_replay as PR
-from lzma_sdk_zliblike_tpu_torch.models.lzma.spec import LzmaProps
 from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
 from lzma_sdk_zliblike_tpu_torch.utils.errors import ParamError
 
@@ -107,14 +105,6 @@ def test_native_is_built_from_the_ports_source():
     assert os.path.exists(N.lib_path())
     assert os.path.dirname(N.lib_path()) == os.path.join(REPO, "build",
                                                          "torch_host")
-
-
-def test_op_replay_copy_matches_native():
-    """The port's copy of the scalar spec reproduces the native bodies."""
-    data = big_mixed(9_000, seed=5)
-    ops, tab, body = N.lzma2_group_ops(data, DICT, sub_size=SUB)
-    assert b"".join(PR.replay_group(data, ops, tab, LzmaProps(
-        dict_size=DICT))) == body
 
 
 # ---------------------------------------------------------------------------
