@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's LZMA2 decode and encode paths on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's LZMA2 decode and encode paths and its
+bit-call probes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
 
 1. build: nvcc builds every kernel of the paths (``csrc/*.cu``: K1
-   ``group_decode``, K2 ``range_encode``) for sm_90a; the ``-Xptxas -v``
+   ``group_decode``, K2 ``range_encode``, P1 ``v12_probe``, P2
+   ``compact_probe``) for sm_90a; the ``-Xptxas -v``
    report (registers, shared memory, spills) is printed.
 2. kernel vs plain: K1 on CUDA tensors against ``group_decode_plain`` on CPU
    copies of the same 16-lane batch (single- and multi-chunk groups, mid-group
@@ -41,6 +43,15 @@ Phases, each printed as one JSON line:
    that fails or whose bodies differ from the native coder's).  Its step
    breakdown, kernel time (CUDA events) and bound are read from that run's
    trace counters.
+7. probes: the bit-call microbenchmarks P1 (``tools/dev_v12_probe.py`` of
+   the port, every variant at S = 32 and 128) and P2
+   (``tools/compact_probe.py``, its four kernels on two seeds), each kernel
+   on the card against its plain version on the CPU at a small ``iters``
+   (tolerance 0: integer programs), then each tool's ``run`` at its own
+   defaults (P1 20,000 iterations, P2 2,000; CUDA events, best of 3) with
+   the launch counts set to 0 just before.  Their bounds count the int32
+   (and, for mxu, f32) operations of each call from the kernel source over
+   the SMs' INT32 (FP32) lanes at the card's maximum SM clock.
 
 Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
 one compression per group, so the original bytes are the ground truth.
@@ -501,6 +512,85 @@ def encode_main(data: bytes, device) -> dict:
     return res
 
 
+P1_VARIANTS = ("broadcast", "masked", "fused2", "live3", "tailalways",
+               "tailnever", "tailcond", "while", "whilecond", "lane",
+               "lane-notr")
+SEEDS = (12345, -7000000)
+# the kernel-vs-plain size: 65 iterations reach whilecond's busy check at 64
+CHECK_ITERS = 65
+INT32_LANES, FP32_LANES = 64, 128      # per SM per clock (Hopper)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def probes(device) -> tuple[dict, dict, dict]:
+    """Phase 7: P1 and P2 against their plain versions, then each tool's
+    ``run`` at its defaults with the launch counts set to 0 just before.
+    Returns the phase line and the P1 and P2 entries of the kernels line."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.tools import compact_probe as C
+    from lzma_sdk_zliblike_tpu_torch.tools import dev_v12_probe as V
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock = max_sm_clock_hz()
+    int_rate, fp_rate = sms * INT32_LANES * clock, sms * FP32_LANES * clock
+
+    def check(kernel, plain):
+        t = time.perf_counter()
+        want = plain()
+        ms = (time.perf_counter() - t) * 1e3
+        got = kernel().cpu()
+        return int((got.long() - want.long()).abs().max()), ms
+    res = {"sms": sms, "max_sm_clock_mhz": clock / 1e6,
+           "check_iters": CHECK_ITERS, "checks": []}
+    entries = {}
+    for tag, cases in (
+            ("P1", [(S, v) for S in (32, 128) for v in P1_VARIANTS]),
+            ("P2", [(n, seed) for n in C.KERNELS for seed in SEEDS])):
+        err = plain_ms = 0
+        for a, b in cases:
+            if tag == "P1":
+                e, ms = check(
+                    lambda: V.v12_probe(a, CHECK_ITERS, b, device=device),
+                    lambda: V.v12_probe_plain(a, CHECK_ITERS, b))
+            else:
+                e, ms = check(
+                    lambda: C.compact_probe(a, CHECK_ITERS, b, device=device),
+                    lambda: C.compact_probe_plain(a, CHECK_ITERS, b))
+            res["checks"].append([tag, a, b, e])
+            err, plain_ms = max(err, e), plain_ms + ms
+        entries[tag] = {"max_abs_err": err, "matches_plain": err == 0,
+                        "plain_ms": plain_ms, "plain_iters": CHECK_ITERS}
+    # the tools' main path: every variant, at the tools' own defaults
+    V.launches = 0
+    runs = [V.run(S, 20000, v) for S in (32, 128) for v in P1_VARIANTS]
+    entries["P1"]["launches"] = V.launches
+    for r in runs:
+        r.pop("out")
+        r["bound_ms"] = V.operations(r["S"], r["iters"], r["variant"],
+                                     r["tail_runs"]) / int_rate * 1e3
+    res["P1"] = runs
+    C.launches = 0
+    runs = [C.run(n, 2000) for n in C.KERNELS]
+    entries["P2"]["launches"] = C.launches
+    for r in runs:
+        ops_int, ops_fp = C.operations(r["name"], r["iters"])
+        r["bound_ms"] = max(ops_int / int_rate, ops_fp / fp_rate) * 1e3
+    res["P2"] = runs
+    for tag in ("P1", "P2"):
+        e = entries[tag]
+        e["ms"] = sum(r["ms"] for r in res[tag])
+        e["bound_ms"] = sum(r["bound_ms"] for r in res[tag])
+    res["pass"] = all(entries[t]["matches_plain"] and entries[t]["launches"]
+                      > 0 for t in entries)
+    return res, entries["P1"], entries["P2"]
+
+
 def drive(stream: bytes, prop: int, data: bytes, device) -> dict:
     """One run of the main path with the counters set to 0 just before."""
     import torch
@@ -664,6 +754,12 @@ def main() -> int:
     if not p6["pass"]:
         failed.append("encode_main")
 
+    # -- 7. probes: P1 and P2 -------------------------------------------------
+    p7, k_p1, k_p2 = probes(device)
+    emit({"phase": "probes", **p7})
+    if not p7["pass"]:
+        failed.append("probes")
+
     emit({"kernels": [{
         "name": "group_decode (K1)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/group_decode.cu",
@@ -682,7 +778,15 @@ def main() -> int:
         "plain_ms": p5["plain_ms"], "plain_batch_kernel_ms": p5["kernel_ms"],
         "bound_ms": p6["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ops_per_lane_max": p6["ops_per_lane_max"],
-        "main_shape_plain_ms": p5["main_shape"]["plain_ms"]}]})
+        "main_shape_plain_ms": p5["main_shape"]["plain_ms"]}, {
+        "name": "v12_probe (P1)", "route": "cuda",
+        "source": "lzma_sdk_zliblike_tpu_torch/csrc/v12_probe.cu",
+        "replaces": "tools/dev_v12_probe.py:41", **k_p1,
+        "bound_by": "operations", "library_ms": None}, {
+        "name": "compact_probe (P2)", "route": "cuda",
+        "source": "lzma_sdk_zliblike_tpu_torch/csrc/compact_probe.cu",
+        "replaces": "tools/compact_probe.py:69", **k_p2,
+        "bound_by": "operations", "library_ms": None}]})
     print(smi[0])
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

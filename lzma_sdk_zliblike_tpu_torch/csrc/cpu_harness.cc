@@ -1,9 +1,10 @@
 // Test-only CPU build of the per-lane code that group_decode.cu (K1) and
-// range_encode.cu (K2) run on the GPU: the same lzma_lane.cuh and
-// lzma_enc_lane.cuh, compiled by g++, looping over lanes on the host.
-// tests/test_torch_group_decode.py and tests/test_torch_range_encode.py build
-// it and hold it against the plain versions in ops/; the package never loads
-// it.
+// range_encode.cu (K2) run on the GPU, and of the per-element bit call of
+// the probes v12_probe.cu (P1) and compact_probe.cu (P2): the same
+// lzma_lane.cuh, lzma_enc_lane.cuh and probe_lane.cuh, compiled by g++,
+// looping over lanes or elements on the host.  The tests/test_torch_*.py
+// files build it and hold it against the plain versions in ops/ and tools/;
+// the package never loads it.
 //
 //   g++ -O2 -std=c++17 -shared -fPIC -o libcpu_harness.so cpu_harness.cc
 
@@ -13,6 +14,7 @@
 
 #include "lzma_enc_lane.cuh"
 #include "lzma_lane.cuh"
+#include "probe_lane.cuh"
 
 extern "C" int lzt_group_decode_cpu(const void* src, long long pack_cap,
                                     const void* pack_ends, const void* unpack_ends,
@@ -92,5 +94,52 @@ extern "C" int lzt_shift_low_cpu(void* low, void* cache, void* cache_size, void*
     ((int64_t*)opos)[lane] = C.opos;
     ((int64_t*)err)[lane] = C.err;
   }
+  return 0;
+}
+
+// One P1 bit call per element (probe_lane.cuh): rng and code (uint32) in and
+// out, p and live (int32) in, the adapted probability and the bit out.
+extern "C" int lzt_v12_call_cpu(void* rng, void* code, const void* p, const void* live,
+                                void* newp, void* bit0, int n) {
+  using namespace lzt::probe;
+  for (int i = 0; i < n; ++i) {
+    uint32_t& r = ((uint32_t*)rng)[i];
+    uint32_t& c = ((uint32_t*)code)[i];
+    const int32_t pi = ((const int32_t*)p)[i];
+    const uint32_t bound = v12_bound(r, pi);
+    const bool b = c < bound;
+    ((int32_t*)newp)[i] = adapt(pi, b);
+    ((int32_t*)bit0)[i] = b;
+    v12_settle(r, c, bound, b, ((const int32_t*)live)[i] != 0);
+  }
+  return 0;
+}
+
+// P1's 26-trip tail per element (uint32 in and out).
+extern "C" int lzt_v12_tail_cpu(void* r, void* c, int n) {
+  for (int i = 0; i < n; ++i) lzt::probe::v12_tail(((uint32_t*)r)[i], ((uint32_t*)c)[i]);
+  return 0;
+}
+
+// One P2 call per element (all int32): the slot it reads (& 127 for
+// slots == 128, else the floor modulo), then the ALU; rng, code and st in
+// and out, prob in, slot and the new probability out.
+extern "C" int lzt_compact_call_cpu(void* rng, void* code, void* st, const void* prob,
+                                    void* slot, void* newp, int slots, int n) {
+  using namespace lzt::probe;
+  for (int i = 0; i < n; ++i) {
+    int32_t& r = ((int32_t*)rng)[i];
+    int32_t& c = ((int32_t*)code)[i];
+    int32_t& s = ((int32_t*)st)[i];
+    ((int32_t*)slot)[i] = slots == kLanes ? compact_slot(s, c) : compact_slot_mod(s, c, slots);
+    ((int32_t*)newp)[i] = compact_alu(r, c, s, ((const int32_t*)prob)[i]);
+  }
+  return 0;
+}
+
+// P2's initial code of each index i (int32) for `seed`.
+extern "C" int lzt_compact_code0_cpu(const void* i, void* out, int seed, int n) {
+  for (int k = 0; k < n; ++k)
+    ((int32_t*)out)[k] = lzt::probe::compact_code0(((const int32_t*)i)[k], seed);
   return 0;
 }

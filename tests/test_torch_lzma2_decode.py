@@ -154,6 +154,38 @@ def test_mismatched_props_group_decodes_on_host():
     assert TRACE.snapshot().get("scheduler.host_fallback_groups", 0) == 1
 
 
+def test_props_above_lc_lp_4_decode_on_host(monkeypatch):
+    """LZMA2 forbids lc + lp > 4 and liblzma refuses such props, but the
+    JAX package's framing accepts them and decodes such groups on the host.
+    So does the port: it never hands them to K1, whose model is sized for
+    lc + lp <= 4, and ``submit_groups`` itself raises ParamError for them.
+    The stream comes from the port's own native encoder."""
+    from lzma_sdk_zliblike_tpu_torch import native
+    data = big_mixed(3000, seed=50)
+    stream, prop = native.lzma2_encode(data, 1 << 16, 1024, lc=4, lp=1, pb=2)
+    groups = F.split_groups(F.scan(stream)[0])
+    jgroups = JF.split_groups(JF.scan(stream)[0])
+    assert len(groups) == 3
+    assert {(c.props.lc, c.props.lp) for g in groups for c in g
+            if c.props is not None} == {(4, 1)}
+    for g, jg in zip(groups, jgroups):
+        assert F.decode_chunks(stream, g) == JF.decode_chunks(stream, jg)
+
+    def no_launch(*args, **kw):
+        raise AssertionError("a group with lc + lp > 4 reached K1")
+    monkeypatch.setattr(G, "submit_groups", no_launch)
+    TRACE.reset()
+    assert P.lzma2_uncompress(stream, prop, device="cpu") == data == \
+        jlzt.lzma2_uncompress(stream, prop)
+    assert TRACE.snapshot().get("scheduler.host_fallback_groups", 0) == 3
+    monkeypatch.undo()
+    one = torch.ones(1, 1, dtype=torch.int32)
+    with pytest.raises(P.ParamError, match="lc \\+ lp <= 4"):
+        G.submit_groups(torch.zeros(1, 8, dtype=torch.uint8), one, one, one,
+                        torch.ones(1, dtype=torch.int32), dic_cap=8, lc=4,
+                        lp=1)
+
+
 def test_groups_of_other_props_decode_in_their_own_batches():
     """Groups whose lc/lp/pb differ run on the device, one launch per
     props, and the stream still matches the JAX package."""
