@@ -14,10 +14,16 @@ Phases, each printed as one JSON line:
    copies of the same 16-lane batch (single- and multi-chunk groups, mid-group
    state resets, copy chunks, a group of more than 128 chunks, a lane of
    several groups, a corrupt lane), then two 300-lane batches of 1-3 KB
-   groups (lc=3/lp=0 and lc=0/lp=4: several lanes per block, the second
-   above 48 KB of shared memory per block).  out, ok and consumed must be
-   identical (tolerance 0: the decoder is bit-exact), and every good lane
-   must equal its original bytes.
+   groups (lc=3/lp=0 and lc=0/lp=4: three lanes per SM), then the
+   many-lanes batch: 8 lanes per SM (1,056 on an H100) of 64 KiB groups cut
+   from phase 3's data, one corrupted, where the launcher's dictionary
+   window shrinks to a few KiB and most matches take the far path through
+   ``out``; 8 of its lanes, the corrupt one among them, against the plain
+   version on CPU copies of them, every good lane against its original, and
+   the whole batch timed.  out, ok and consumed must be identical
+   (tolerance 0: the decoder is bit-exact), packets and bit calls equal on
+   every lane that ends ok, and every good lane must equal its original
+   bytes.
 3. main: ``lzma2_uncompress(device="cuda")`` on 128 MiB of the repo's
    ``big_mixed`` corpus cut into 1 MiB dict-reset groups; then the same
    stream under a device budget of 32 lanes (``LZT_HBM_BUDGET``), which
@@ -58,7 +64,10 @@ one compression per group, so the original bytes are the ground truth.
 Phases 3 and 4 require output == original, K1 launches > 0, and no host
 fallback or lane retry.  The last line is the device summary; the line
 before the nvidia line lists the kernels with their launches, times and
-bounds.  Any failure exits non-zero.
+bounds (K1 has two: the bytes bound and the chain bound, the longest lane's
+bit calls at the probes' pure-ALU cost of a dependent call, with the window
+and blocks per SM that its launcher chose on phase 3).  Any failure exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -76,6 +85,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 MIB = 1 << 20
+# one dependent range-coder bit call as pure ALU chain on the H100: P1's
+# lane-notr variant, 0.53 us per iteration of 28 calls (tools/dev_v12_probe)
+NS_PER_BIT_CALL = 19.1
 
 
 def emit(obj) -> None:
@@ -216,7 +228,15 @@ def time_kernel(G, tensors, dic_cap, reps: int) -> dict:
     torch.cuda.synchronize()
     return {"kernel_ms": t0.elapsed_time(t1) / reps,
             "iterations_max": int(h.iterations.max()),
-            "iterations_total": int(h.iterations.long().sum())}
+            "iterations_total": int(h.iterations.long().sum()),
+            "bit_calls_max": int(h.bit_calls.max()),
+            "bit_calls_total": int(h.bit_calls.long().sum())}
+
+
+def chain_bound_ms(bit_calls_max: int) -> float:
+    """Least time of a serial lane on the card: the longest lane's bit calls
+    at the probes' dependent pure-ALU cost of one call."""
+    return bit_calls_max * NS_PER_BIT_CALL * 1e-6
 
 
 def compare(G, tensors, dic_cap, device, lc=3, lp=0, pb=2):
@@ -225,15 +245,20 @@ def compare(G, tensors, dic_cap, device, lc=3, lp=0, pb=2):
     bit-exact).  Also returns the kernel's out and ok."""
     import torch
     t = time.perf_counter()
-    p_out, p_ok, p_cons = G.group_decode_plain(*tensors, dic_cap, lc, lp, pb)
+    p_out, p_ok, p_cons, p_it, p_bits = G.group_decode_plain(
+        *tensors, dic_cap, lc, lp, pb, counts=True)
     plain_ms = (time.perf_counter() - t) * 1e3
     h = G.submit_groups(*[x.to(device) for x in tensors], dic_cap=dic_cap,
                         lc=lc, lp=lp, pb=pb)
-    k_out, k_ok, k_cons = (x.cpu() for x in (h.out, h.ok, h.consumed))
+    k_out, k_ok, k_cons, k_it, k_bits = (
+        x.cpu() for x in (h.out, h.ok, h.consumed, h.iterations, h.bit_calls))
+    good = p_ok != 0
     return {"lanes": len(k_ok),
             "out_equal": bool(torch.equal(k_out, p_out)),
             "ok_equal": bool(torch.equal(k_ok, p_ok)),
             "consumed_equal": bool(torch.equal(k_cons, p_cons)),
+            "counts_equal": bool(torch.equal(k_it[good], p_it[good])
+                                 and torch.equal(k_bits[good], p_bits[good])),
             "max_abs_err": int((k_out.int() - p_out.int()).abs().max()),
             "plain_ms": plain_ms}, k_out, k_ok
 
@@ -261,9 +286,62 @@ def wide_batch(pool, n_lanes: int, text: bytes, **props):
     return tensors, dic_cap, origs
 
 
-def kernel_vs_plain(pool, device) -> dict:
+def many_lanes(pool, device, data: bytes) -> dict:
+    """8 lanes per SM of 64 KiB groups cut from ``data``, one corrupted:
+    every good lane must equal its original with ok set and consumed equal
+    to its packed size, the corrupt lane must fail alone, and 8 of the
+    lanes, the corrupt one among them, must equal the plain version on CPU
+    copies of them (lanes are independent; the plain version of all of them
+    would take many minutes).  The launcher's window is a few KiB here, so
+    most matches take the far path through ``out``."""
     import torch
-    from lzma_sdk_zliblike_tpu_torch.models.lzma import spec as S
+    from lzma_sdk_zliblike_tpu_torch.models.lzma2 import framing
+    from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
+    from lzma_sdk_zliblike_tpu_torch.parallel.scheduler import (
+        BatchedLzma2Decoder, BatchShape)
+    n = 8 * torch.cuda.get_device_properties(device).multi_processor_count
+    size = 64 << 10
+    origs = [data[i * size:(i + 1) * size] for i in range(n)]
+    stream, _ = lzma2_stream(pool.map(lambda d: lzma2_group(d, size), origs),
+                             size)
+    groups = framing.split_groups(framing.scan(stream)[0])
+    pack_cap = max(sum(c.pack_size for c in g) for g in groups)
+    dec = BatchedLzma2Decoder(BatchShape(n_lanes=n, pack_cap=pack_cap,
+                                         dic_cap=size), device="cpu")
+    src, pe, ue, fl, act = (torch.from_numpy(a) for a in
+                            dec._assemble(stream, [[g] for g in groups], 1))
+    bad = n // 2 + 3
+    src[bad, int(pe[bad, -1]) // 2] ^= 0x55
+    tensors = (src, pe, ue, fl, act)
+    resident = [x.to(device) for x in tensors]
+    h = G.submit_groups(*resident, dic_cap=size)
+    k_out, k_ok, k_cons, k_it = (
+        x.cpu() for x in (h.out, h.ok, h.consumed, h.iterations))
+    good = [li for li in range(n) if li != bad]
+    res = {"lanes": n, "dic_cap": size,
+           "geometry": G.launch_geometry(n, size, device=device),
+           "originals_equal": all(
+               bool(k_ok[li]) and int(k_cons[li]) == int(pe[li, -1])
+               and k_out[li].numpy().tobytes() == origs[li] for li in good),
+           "corrupt_lane_failed_alone": not bool(k_ok[bad])}
+    # the plain version's time follows the subset's longest lane, so the 7
+    # good lanes are spread over the lower half by packets: text lanes, with
+    # the most far matches (a lane of near-random bytes is ~65,000 literals)
+    half = sorted(good, key=lambda li: int(k_it[li]))[:len(good) // 2]
+    subset = sorted([bad] + half[::len(half) // 7][:7])
+    sub, _, _ = compare(G, [x[subset].contiguous() for x in tensors], size,
+                        device)
+    res["subset"] = {"lanes": subset, **sub}
+    res.update(time_kernel(G, resident, size, reps=3))
+    res["bound_ms"] = bound_ms(int(pe[:, -1].sum()), n * size)
+    res["pass"] = (res["originals_equal"] and res["corrupt_lane_failed_alone"]
+                   and sub["out_equal"] and sub["ok_equal"]
+                   and sub["consumed_equal"] and sub["counts_equal"])
+    return res
+
+
+def kernel_vs_plain(pool, device, data: bytes) -> dict:
+    import torch
     from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
     from lzma_sdk_zliblike_tpu_torch.parallel.scheduler import (
         BatchedLzma2Decoder, BatchShape)
@@ -291,7 +369,8 @@ def kernel_vs_plain(pool, device) -> dict:
     res["corrupt_lane_failed_alone"] = (
         not k_ok[bad] and all(bool(k_ok[li]) for li in good))
     res["pass"] = (res["out_equal"] and res["ok_equal"]
-                   and res["consumed_equal"] and res["originals_equal"]
+                   and res["consumed_equal"] and res["counts_equal"]
+                   and res["originals_equal"]
                    and res["corrupt_lane_failed_alone"]
                    and res["chunks_max"] > 128 and res["bit3_lanes"] > 0
                    and res["copy_chunks"] > 0 and res["reset_chunks"] > 0)
@@ -308,20 +387,21 @@ def kernel_vs_plain(pool, device) -> dict:
         p = {"lc": 3, "lp": 0, "pb": 2, **props}
         w, w_out, w_ok = compare(G, tensors, cap, device, **p)
         w["props"] = p
-        # the launcher's geometry: lanes spread over the SMs, one model each
-        per_block = -(-w["lanes"] // torch.cuda.get_device_properties(
-            device).multi_processor_count)
-        w["smem_per_block"] = per_block * 2 * (
-            (S.num_probs(p["lc"], p["lp"]) + 7) & ~7)
+        w["geometry"] = G.launch_geometry(w["lanes"], cap, p["lc"], p["lp"],
+                                          device)
         w["originals_equal"] = bool(w_ok.all()) and all(
             w_out[li, :len(o)].numpy().tobytes() == o
             for li, o in enumerate(worig))
         w["pass"] = (w["out_equal"] and w["ok_equal"]
-                     and w["consumed_equal"] and w["originals_equal"])
+                     and w["consumed_equal"] and w["counts_equal"]
+                     and w["originals_equal"])
         res["wide"].append(w)
         res["max_abs_err"] = max(res["max_abs_err"], w["max_abs_err"])
         res["pass"] = res["pass"] and w["pass"]
         text = text[sum(len(o) for o in worig):]
+    res["many_lanes"] = m = many_lanes(pool, device, data)
+    res["max_abs_err"] = max(res["max_abs_err"], m["subset"]["max_abs_err"])
+    res["pass"] = res["pass"] and m["pass"]
     return res
 
 
@@ -689,15 +769,15 @@ def main() -> int:
           "registers": regs, "spill_store_bytes": spills, "pass": True})
 
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        data = corpus(128 * MIB)
         # -- 2. kernel vs plain version ------------------------------------
-        p2 = kernel_vs_plain(pool, device)
+        p2 = kernel_vs_plain(pool, device, data)
         emit({"phase": "kernel_vs_plain", **p2})
         if not p2["pass"]:
             failed.append("kernel_vs_plain")
 
         # -- data for phases 3 and 4 --------------------------------------
         t = time.perf_counter()
-        data = corpus(128 * MIB)
         big = pool.submit(lzma2_group, data[:64 * MIB], 16 * MIB)
         stream, prop = lzma2_stream(pool.map(
             lambda a: lzma2_group(data[a:a + MIB], MIB),
@@ -710,9 +790,12 @@ def main() -> int:
     p3 = drive(stream, prop, data, device)
     tensors, shape, p3["breakdown_ms"] = main_breakdown(stream, device)
     p3["lanes"] = shape.n_lanes
+    p3["geometry"] = G.launch_geometry(shape.n_lanes, shape.dic_cap,
+                                       device=device)
     p3.update(time_kernel(G, tensors, shape.dic_cap, reps=3))
     p3["device_idle_share"] = 1 - p3["kernel_ms"] / (p3["seconds"] * 1e3)
     p3["bound_ms"] = bound_ms(int(tensors[1][:, -1].sum()), len(data))
+    p3["chain_bound_ms"] = chain_bound_ms(p3["bit_calls_max"])
     del tensors
     emit({"phase": "main", **p3})
     if not p3["pass"]:
@@ -768,8 +851,15 @@ def main() -> int:
         "max_abs_err": p2["max_abs_err"], "ms": p3["kernel_ms"],
         "plain_ms": p2["plain_ms"], "plain_batch_kernel_ms": p2["kernel_ms"],
         "bound_ms": p3["bound_ms"], "bound_by": "bytes",
+        "chain_bound_ms": p3["chain_bound_ms"],
         "library_ms": None, "iterations_max": p3["iterations_max"],
-        "bigblock_launches": p4["launches"]}, {
+        "bit_calls_max": p3["bit_calls_max"],
+        "window": p3["geometry"]["window"],
+        "blocks_per_sm": p3["geometry"]["blocks_per_sm"],
+        "many_lanes_ms": p2["many_lanes"]["kernel_ms"],
+        "many_lanes_window": p2["many_lanes"]["geometry"]["window"],
+        "bigblock_launches": p4["launches"],
+        "bigblock_seconds": p4["seconds"]}, {
         "name": "range_encode (K2)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/range_encode.cu",
         "replaces": "lzma_sdk_zliblike_tpu/ops/pallas_encode.py:78",

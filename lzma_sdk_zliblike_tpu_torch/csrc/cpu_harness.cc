@@ -2,7 +2,8 @@
 // range_encode.cu (K2) run on the GPU, and of the per-element bit call of
 // the probes v12_probe.cu (P1) and compact_probe.cu (P2): the same
 // lzma_lane.cuh, lzma_enc_lane.cuh and probe_lane.cuh, compiled by g++,
-// looping over lanes or elements on the host.  The tests/test_torch_*.py
+// looping over lanes or elements on the host (and, for K1, over the 32
+// threads of a lane's warp).  The tests/test_torch_*.py
 // files build it and hold it against the plain versions in ops/ and tools/;
 // the package never loads it.
 //
@@ -16,29 +17,34 @@
 #include "lzma_lane.cuh"
 #include "probe_lane.cuh"
 
+// lzt_group_decode (group_decode.cu) on the host, same arguments but the
+// stream, plus the ring's `window` (a power of two >= lzt::kMinWindow; the
+// card's launcher derives it).  One call plays the lane's 32 threads.
 extern "C" int lzt_group_decode_cpu(const void* src, long long pack_cap,
                                     const void* pack_ends, const void* unpack_ends,
                                     const void* flags, int n_chunks,
                                     const void* active, void* out, long long dic_cap,
                                     void* ok, void* consumed, void* iterations,
-                                    int n_lanes, int lc, int lp, int pb) {
+                                    void* bit_calls, int n_lanes, int lc, int lp,
+                                    int pb, int window) {
+  if (window < (int)lzt::kMinWindow || (window & (window - 1))) return 1;
   std::vector<uint16_t> probs(lzt::num_probs(lc, lp));
+  std::vector<uint8_t> inbuf(lzt::kInBuf), ring(window);
   for (int lane = 0; lane < n_lanes; ++lane) {
-    int32_t* ok_l = (int32_t*)ok + lane;
-    int32_t* consumed_l = (int32_t*)consumed + lane;
-    int32_t* iters_l = (int32_t*)iterations + lane;
-    if (!((const int32_t*)active)[lane]) {
-      *ok_l = 1;
-      *consumed_l = 0;
-      *iters_l = 0;
-      continue;
+    lzt::LaneStatus s = {1, 0, 0, 0};
+    if (((const int32_t*)active)[lane]) {
+      const int64_t t = (int64_t)lane * n_chunks;
+      s = lzt::decode_lane((const uint8_t*)src + (int64_t)lane * pack_cap,
+                           (uint32_t)pack_cap, (const int32_t*)pack_ends + t,
+                           (const int32_t*)unpack_ends + t, (const int32_t*)flags + t,
+                           n_chunks, (uint8_t*)out + (int64_t)lane * dic_cap,
+                           (uint32_t)dic_cap, probs.data(), inbuf.data(), ring.data(),
+                           (uint32_t)window, lc, lp, pb, lzt::Threads{0, lzt::kT});
     }
-    const int64_t t = (int64_t)lane * n_chunks;
-    lzt::decode_lane((const uint8_t*)src + (int64_t)lane * pack_cap, pack_cap,
-                     (const int32_t*)pack_ends + t, (const int32_t*)unpack_ends + t,
-                     (const int32_t*)flags + t, n_chunks,
-                     (uint8_t*)out + (int64_t)lane * dic_cap, dic_cap, probs.data(),
-                     lc, lp, pb, ok_l, consumed_l, iters_l);
+    ((int32_t*)ok)[lane] = s.ok;
+    ((int32_t*)consumed)[lane] = s.consumed;
+    ((int32_t*)iterations)[lane] = s.iterations;
+    ((int32_t*)bit_calls)[lane] = s.bit_calls;
   }
   return 0;
 }

@@ -6,19 +6,28 @@
 // LzmaDec.c:131-426, with per-chunk range-coder re-init, state resets, copy
 // chunks moved in the kernel and in-lane dictionary rebase (flag bits in
 // lzma_lane.cuh).  The TPU layout (streams on sublanes, 128-lane pages,
-// packed word pages, the VMEM ring, staging words, tune flags) is left
-// behind: a CUDA thread has its own scalar control flow, so one thread runs
-// one lane's serial decoder.  The chunk table lives in global memory with no
-// 128-entry cap.
+// packed word pages, staging words, tune flags) is left behind; the chunk
+// table lives in global memory with no 128-entry cap.
 //
 // What bounds it on this card: the serial dependency inside a lane (every
-// range-coder bit waits on the previous one, each match byte on a global
-// load), not bandwidth.  The bytes bound -- packed input read once plus
-// output written once at 3.35 TB/s -- is tens of microseconds for a
-// 128 MiB batch, orders of magnitude below the serial time.  This simple
-// design does nothing about that yet, by intent: one thread per lane, the
-// lane's probability model (num_probs(lc, lp) uint16) in shared memory, the
-// dictionary read and written byte by byte in the lane's row of `out`.
+// range-coder bit waits on the previous one), not bandwidth: the bytes
+// bound -- packed input read once plus output written once at 3.35 TB/s --
+// is tens of microseconds for a 128 MiB batch.  The design keeps device
+// memory off that chain.  A block is one warp and decodes one lane
+// (lzma_lane.cuh): the 32 threads run the scalar decoder alike and share
+// the byte moves.  Its dynamic shared memory holds the lane's model, a
+// ring of four 512-byte pieces of its packed input (cp.async, 16 bytes a
+// thread, one piece in flight ahead of the decoder) and a ring of its last
+// output bytes, the dictionary window, which reaches `out` in whole
+// segments with 16-byte stores.  Literal contexts, matched bytes,
+// short reps and match sources come from the ring, or for the few distances
+// beyond the window from `out`, one warp-wide load per match.
+//
+// The window: ceil(n_lanes / SMs) blocks share an SM, so each gets that
+// share of the SM's shared memory; the window is the largest power of two
+// that fits beside the model and the input buffer, at least kMinWindow and
+// no larger than a power of two that covers dic_cap.  One lane per SM gets
+// 128 KiB; eight lanes per SM get 8 KiB.
 //
 // Built by ops/_build.py with nvcc for sm_90a into a shared library with a
 // plain C interface; ops/group_decode.py calls lzt_group_decode through
@@ -31,65 +40,113 @@
 
 namespace {
 
-__global__ void group_decode_kernel(
-    const uint8_t* __restrict__ src, int64_t pack_cap,
+__global__ void __launch_bounds__(lzt::kT) group_decode_kernel(
+    const uint8_t* __restrict__ src, uint32_t pack_cap,
     const int32_t* __restrict__ pack_ends, const int32_t* __restrict__ unpack_ends,
     const int32_t* __restrict__ flags, int n_chunks,
-    const int32_t* __restrict__ active, uint8_t* __restrict__ out, int64_t dic_cap,
+    const int32_t* __restrict__ active, uint8_t* out, uint32_t dic_cap,
     int32_t* __restrict__ ok, int32_t* __restrict__ consumed,
-    int32_t* __restrict__ iterations, int n_lanes, int lc, int lp, int pb,
-    int probs_stride) {
-  extern __shared__ uint16_t probs_smem[];
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  if (!active[lane]) {
-    ok[lane] = 1;
-    consumed[lane] = 0;
-    iterations[lane] = 0;
-    return;
+    int32_t* __restrict__ iterations, int32_t* __restrict__ bit_calls, int lc,
+    int lp, int pb, int probs_bytes, uint32_t window) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = blockIdx.x;
+  lzt::LaneStatus s = {1, 0, 0, 0};   // an inactive lane reports ok
+  if (active[lane]) {
+    const int64_t t = (int64_t)lane * n_chunks;
+    const int me = (int)threadIdx.x;
+    s = lzt::decode_lane(src + (int64_t)lane * pack_cap, pack_cap, pack_ends + t,
+                         unpack_ends + t, flags + t, n_chunks,
+                         out + (int64_t)lane * dic_cap, dic_cap, (uint16_t*)smem,
+                         smem + probs_bytes, smem + probs_bytes + lzt::kInBuf, window,
+                         lc, lp, pb, lzt::Threads{me, me + 1});
   }
-  const int64_t t = (int64_t)lane * n_chunks;
-  lzt::decode_lane(src + (int64_t)lane * pack_cap, pack_cap, pack_ends + t,
-                   unpack_ends + t, flags + t, n_chunks,
-                   out + (int64_t)lane * dic_cap, dic_cap,
-                   probs_smem + threadIdx.x * probs_stride, lc, lp, pb,
-                   ok + lane, consumed + lane, iterations + lane);
+  if (threadIdx.x == 0) {
+    ok[lane] = s.ok;
+    consumed[lane] = s.consumed;
+    iterations[lane] = s.iterations;
+    bit_calls[lane] = s.bit_calls;
+  }
 }
 
-}  // namespace
+struct Geometry {
+  int probs_bytes, window, smem;
+};
 
-// Launches K1 on `stream` without synchronising.  Lanes are spread over the
-// SMs first (one lane per block while there are SMs to spare); a block holds
-// as many lanes as its shared memory allows.  Returns the CUDA error code of
-// the attribute call or the launch (0 = launched).
-extern "C" int lzt_group_decode(const void* src, long long pack_cap,
-                                const void* pack_ends, const void* unpack_ends,
-                                const void* flags, int n_chunks, const void* active,
-                                void* out, long long dic_cap, void* ok,
-                                void* consumed, void* iterations, int n_lanes,
-                                int lc, int lp, int pb, void* stream) {
-  if (n_lanes <= 0) return 0;
-  int dev = 0, sms = 0, smem_max = 0;
+// The launch geometry of the header comment; also sets the kernel's shared
+// memory attributes for it.
+cudaError_t geometry(int n_lanes, long long dic_cap, int lc, int lp, Geometry* g) {
+  int dev = 0, sms = 0, per_sm = 0, per_block = 0, reserved = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int stride = (lzt::num_probs(lc, lp) + 7) & ~7;   // 16-byte rows
-  const int lane_bytes = stride * (int)sizeof(uint16_t);
-  int per_block = (n_lanes + sms - 1) / sms;
-  if (per_block * lane_bytes > smem_max) per_block = smem_max / lane_bytes;
-  if (per_block < 1) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)per_block * lane_bytes;
+    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return e;
+  g->probs_bytes = ((lzt::num_probs(lc, lp) + 7) & ~7) * (int)sizeof(uint16_t);
+  const long long fixed = g->probs_bytes + (long long)lzt::kInBuf;
+  const long long per_sm_lanes = (n_lanes + sms - 1) / sms;
+  long long room = per_sm / per_sm_lanes - reserved;
+  if (room > per_block) room = per_block;
+  room -= fixed;
+  long long w = lzt::kMinWindow;
+  while (2 * w <= room && w < dic_cap) w *= 2;
+  g->window = (int)w;
+  g->smem = (int)(fixed + w);
+  if (g->smem > per_block) return cudaErrorInvalidConfiguration;
   e = cudaFuncSetAttribute(group_decode_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(group_decode_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g->smem);
+  return e;
+}
+
+}  // namespace
+
+// The geometry lzt_group_decode launches with for these arguments:
+// out int32[3] = window bytes, dynamic shared memory per block, blocks
+// resident per SM.  Returns the CUDA error code (0 = ok).
+extern "C" int lzt_group_decode_geometry(int n_lanes, long long dic_cap, int lc, int lp,
+                                         void* out) {
+  Geometry g;
+  cudaError_t e = geometry(n_lanes > 0 ? n_lanes : 1, dic_cap, lc, lp, &g);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, group_decode_kernel,
+                                                      lzt::kT, g.smem);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (n_lanes + per_block - 1) / per_block;
-  group_decode_kernel<<<blocks, per_block, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)src, pack_cap, (const int32_t*)pack_ends,
+  int32_t* o = (int32_t*)out;
+  o[0] = g.window;
+  o[1] = g.smem;
+  o[2] = per_sm;
+  return 0;
+}
+
+// Launches K1 on `stream` without synchronising: one block of one warp per
+// lane.  pack_cap and dic_cap must be below 2^31.  Returns the CUDA error
+// code of the attribute calls or the launch (0 = launched).
+extern "C" int lzt_group_decode(const void* src, long long pack_cap,
+                                const void* pack_ends, const void* unpack_ends,
+                                const void* flags, int n_chunks, const void* active,
+                                void* out, long long dic_cap, void* ok,
+                                void* consumed, void* iterations, void* bit_calls,
+                                int n_lanes, int lc, int lp, int pb, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (pack_cap <= 0 || pack_cap >= (1ll << 31) || dic_cap <= 0 || dic_cap >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  Geometry g;
+  cudaError_t e = geometry(n_lanes, dic_cap, lc, lp, &g);
+  if (e != cudaSuccess) return (int)e;
+  group_decode_kernel<<<n_lanes, lzt::kT, g.smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)src, (uint32_t)pack_cap, (const int32_t*)pack_ends,
       (const int32_t*)unpack_ends, (const int32_t*)flags, n_chunks,
-      (const int32_t*)active, (uint8_t*)out, dic_cap, (int32_t*)ok,
-      (int32_t*)consumed, (int32_t*)iterations, n_lanes, lc, lp, pb, stride);
+      (const int32_t*)active, (uint8_t*)out, (uint32_t)dic_cap, (int32_t*)ok,
+      (int32_t*)consumed, (int32_t*)iterations, (int32_t*)bit_calls, lc, lp, pb,
+      g.probs_bytes, (uint32_t)g.window);
   return (int)cudaGetLastError();
 }

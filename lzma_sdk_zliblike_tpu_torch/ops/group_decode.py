@@ -25,7 +25,10 @@ cumulative ends``; an inactive lane reports ok.  A corrupt lane fails alone.
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/group_decode.cu``) or raises; on a CPU tensor it runs the plain
 version, ``group_decode_plain``, a lane-batched lockstep decoder on torch
-tensors.  ``launches`` counts kernel launches.
+tensors.  ``launches`` counts kernel launches.  Beside ``ok`` and
+``consumed`` both report, per lane, the packets decoded (``iterations``)
+and the range-coder bit calls (``bit_calls``, direct bits included): the
+length of the lane's serial chain.
 """
 
 from __future__ import annotations
@@ -47,10 +50,10 @@ FLAG_REBASE = 8
 launches = 0   # K1 launches on the card; set to 0 to start a count
 
 # lzt_group_decode(src, pack_cap, pack_ends, unpack_ends, flags, n_chunks,
-#                  active, out, dic_cap, ok, consumed, iterations,
+#                  active, out, dic_cap, ok, consumed, iterations, bit_calls,
 #                  n_lanes, lc, lp, pb, stream) in csrc/group_decode.cu
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_LAUNCH_ARGTYPES = [_P, _L, _P, _P, _P, _I, _P, _P, _L, _P, _P, _P,
+_LAUNCH_ARGTYPES = [_P, _L, _P, _P, _P, _I, _P, _P, _L, _P, _P, _P, _P,
                     _I, _I, _I, _I, _P]
 
 
@@ -62,6 +65,7 @@ class GroupBatch:
     ok: torch.Tensor           # int32 [S]
     consumed: torch.Tensor     # int32 [S]
     iterations: torch.Tensor | None   # int32 [S] packets per lane (kernel)
+    bit_calls: torch.Tensor | None    # int32 [S] bit calls per lane (kernel)
 
 
 def check_tensors(specs, dev) -> None:
@@ -133,7 +137,7 @@ def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
     if src.device.type == "cpu":
         out, ok, consumed = group_decode_plain(
             src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb)
-        return GroupBatch(out, ok, consumed, None)
+        return GroupBatch(out, ok, consumed, None, None)
     from . import _build
     fn = _build.library("group_decode").lzt_group_decode
     fn.restype = ctypes.c_int
@@ -141,17 +145,34 @@ def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
     n = src.shape[0]
     with torch.cuda.device(src.device):
         out = torch.zeros((n, dic_cap), dtype=torch.uint8, device=src.device)
-        status = torch.empty((3, n), dtype=torch.int32, device=src.device)
+        status = torch.empty((4, n), dtype=torch.int32, device=src.device)
         stream = torch.cuda.current_stream(src.device).cuda_stream
         rc = fn(src.data_ptr(), src.shape[1], pack_ends.data_ptr(),
                 unpack_ends.data_ptr(), flags.data_ptr(), pack_ends.shape[1],
                 active.data_ptr(), out.data_ptr(), dic_cap,
-                status[0].data_ptr(), status[1].data_ptr(),
-                status[2].data_ptr(), n, lc, lp, pb, stream)
+                *(row.data_ptr() for row in status), n, lc, lp, pb, stream)
     if rc != 0:
         raise RuntimeError(f"group_decode kernel launch failed: CUDA error {rc}")
     launches += 1
-    return GroupBatch(out, status[0], status[1], status[2])
+    return GroupBatch(out, *status)
+
+
+def launch_geometry(n_lanes: int, dic_cap: int, lc: int = 3, lp: int = 0,
+                    device=None) -> dict:
+    """The geometry ``submit_groups`` launches K1 with on the current card:
+    the dictionary window (bytes of shared memory ring per lane), the
+    dynamic shared memory per block and the blocks resident per SM."""
+    from . import _build
+    fn = _build.library("group_decode").lzt_group_decode_geometry
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I, _L, _I, _I, _P]
+    res = (ctypes.c_int32 * 3)()
+    with torch.cuda.device(device):
+        rc = fn(n_lanes, dic_cap, lc, lp, ctypes.addressof(res))
+    if rc != 0:
+        raise RuntimeError(f"group_decode geometry failed: CUDA error {rc}")
+    return {"window": res[0], "smem_per_block": res[1],
+            "blocks_per_sm": res[2]}
 
 
 def finalize_chunks(handle: GroupBatch, *, dic_cap: int):
@@ -243,6 +264,7 @@ class _Lockstep:
         self.live = self.active.clone()
         self.err = torch.zeros(n, dtype=torch.bool)
         self.in_chunk = torch.zeros(n, dtype=torch.bool)
+        self.iters, self.bits = z, z      # packets, bit calls per lane
 
     # -- memory ----------------------------------------------------------
     def _src_at(self, p):
@@ -280,6 +302,7 @@ class _Lockstep:
             return torch.zeros_like(idx)
         self._normalize(m)
         m = m & ~self.err
+        self.bits = self.bits + m.long()
         idx = idx.clamp(0, self.n_probs - 1)[:, None]
         p = self.probs.gather(1, idx)[:, 0].long()
         bound = (self.rng >> S.RC_BIT_MODEL_TOTAL_BITS) * p
@@ -297,6 +320,7 @@ class _Lockstep:
         m = m & ~self.err
         self._normalize(m)
         m = m & ~self.err
+        self.bits = self.bits + m.long()
         rng = self.rng >> 1
         code = (self.code - rng) & _M32
         t = code >> 31
@@ -547,6 +571,7 @@ class _Lockstep:
             self._start_chunks()
             m = self.live & self.in_chunk & (self.pos < self.uend)
             if bool(m.any()):
+                self.iters = self.iters + m.long()
                 self._packet(m)
             elif not bool(self.live.any()):
                 break
@@ -554,14 +579,20 @@ class _Lockstep:
         ok = ~self.active | (~self.err & (self.pos == self.ue[:, -1])
                              & (self.inpos == self.pe[:, -1]))
         return (self.out, ok.to(torch.int32),
-                torch.where(self.active, self.inpos, 0).to(torch.int32))
+                torch.where(self.active, self.inpos, 0).to(torch.int32),
+                self.iters.to(torch.int32), self.bits.to(torch.int32))
 
 
 def group_decode_plain(src, pack_ends, unpack_ends, flags, active,
-                       dic_cap: int, lc: int = 3, lp: int = 0, pb: int = 2):
+                       dic_cap: int, lc: int = 3, lp: int = 0, pb: int = 2,
+                       *, counts: bool = False):
     """The plain PyTorch version of K1 on CPU tensors.
 
     Same arguments as ``submit_groups``; returns (out uint8 [S, dic_cap],
-    ok int32 [S], consumed int32 [S])."""
-    return _Lockstep(src, pack_ends, unpack_ends, flags, active, dic_cap,
-                     lc, lp, pb).run()
+    ok int32 [S], consumed int32 [S]), and with ``counts`` also the packets
+    and the bit calls per lane (int32 [S] each).  The kernel's agree on
+    every lane that ends ok; on a failed lane they may differ, since the
+    kernel decodes the failing packet to its end before it checks."""
+    res = _Lockstep(src, pack_ends, unpack_ends, flags, active, dic_cap,
+                    lc, lp, pb).run()
+    return res if counts else res[:3]

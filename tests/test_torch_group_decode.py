@@ -398,8 +398,10 @@ def test_input_checks(single_chunk):
 
 @pytest.fixture(scope="module")
 def cpu_harness():
-    """csrc/cpu_harness.cc (the kernel's per-lane code, lzma_lane.cuh) built
-    with g++ into build/ (tests/torch_cpu_harness.py)."""
+    """csrc/cpu_harness.cc (the kernel's per-lane code, lzma_lane.cuh, with
+    the 32 threads of a lane played in a loop) built with g++ into build/
+    (tests/torch_cpu_harness.py).  ``window`` is the lane's dictionary ring
+    in bytes; the card's launcher derives it from the lanes per SM."""
     spec = importlib.util.spec_from_file_location(
         "lzt_torch_cpu_harness", os.path.join(REPO, "tests",
                                               "torch_cpu_harness.py"))
@@ -413,32 +415,124 @@ def cpu_harness():
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
                    + [ctypes.c_void_p] * 3
                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 4)
+                      ctypes.c_longlong] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 5)
 
-    def run(src, pe, ue, fl, act, dic_cap, lc=3, lp=0, pb=2):
+    def run(src, pe, ue, fl, act, dic_cap, lc=3, lp=0, pb=2, *, window):
+        """(out, ok, consumed, iterations, bit_calls) as the kernel gives
+        them."""
         n = src.shape[0]
         out = torch.zeros((n, dic_cap), dtype=torch.uint8)
-        status = torch.zeros((3, n), dtype=torch.int32)
+        status = torch.zeros((4, n), dtype=torch.int32)
         assert fn(src.data_ptr(), src.shape[1], pe.data_ptr(), ue.data_ptr(),
                   fl.data_ptr(), pe.shape[1], act.data_ptr(), out.data_ptr(),
-                  dic_cap, status[0].data_ptr(), status[1].data_ptr(),
-                  status[2].data_ptr(), n, lc, lp, pb) == 0
-        return out, status[0], status[1]
+                  dic_cap, *(row.data_ptr() for row in status), n, lc, lp, pb,
+                  window) == 0
+        return (out, *status)
     return run
 
 
-def test_cpu_harness_matches_plain(cpu_harness, single_chunk, multi_chunk,
-                                   many_chunks, fuzz_batches):
+# the ring sizes the CPU build runs at: below most fixtures' dictionaries
+# (far matches through `out`, ring wrap, segment flushes) and above them
+WINDOWS = (4096, 65536)
+
+
+def _flat_window(dic_cap):
+    """A ring that holds the whole lane in one segment: nothing reaches
+    `out` before the lane ends."""
+    return 1 << max(12, (2 * dic_cap - 1).bit_length())
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_cpu_harness_matches_plain(cpu_harness, window, single_chunk,
+                                   multi_chunk, many_chunks, fuzz_batches):
     n = 0
     for tensors, dic_cap in _all_batches(single_chunk, multi_chunk,
                                          many_chunks, fuzz_batches):
         plain = G.group_decode_plain(*tensors, dic_cap)
-        harness = cpu_harness(*tensors, dic_cap)
-        for a, b in zip(plain, harness):
+        harness = cpu_harness(*tensors, dic_cap, window=window)
+        for a, b in zip(plain, harness[:3]):
             assert torch.equal(a, b)
         n += 1
     assert n == 6
+
+
+def test_cpu_harness_counts_match_plain(cpu_harness, single_chunk, multi_chunk,
+                                        many_chunks, fuzz_batches):
+    """Packets and bit calls per lane agree wherever the lane ends ok (a
+    failed lane's kernel count may run on to the end of its packet)."""
+    n_ok = 0
+    for tensors, dic_cap in _all_batches(single_chunk, multi_chunk,
+                                         many_chunks, fuzz_batches):
+        _, ok, _, iters, bits = G.group_decode_plain(*tensors, dic_cap,
+                                                     counts=True)
+        _, h_ok, _, h_iters, h_bits = cpu_harness(*tensors, dic_cap,
+                                                  window=WINDOWS[0])
+        good = (ok != 0) & (tensors[4] != 0)
+        assert torch.equal(ok, h_ok)
+        assert torch.equal(iters[good], h_iters[good])
+        assert torch.equal(bits[good], h_bits[good])
+        assert (bits[good] > iters[good]).all()
+        n_ok += int(good.sum())
+    assert n_ok >= 16
+
+
+@pytest.fixture(scope="module")
+def far_lane():
+    """A 24 KiB group of one dictionary whose matches reach 8-12 KiB back,
+    beyond a 4 KiB ring, in 8 KiB chunks (its first is a copy chunk of
+    random bytes); lane 1 is the same group corrupted inside its far
+    matches.  With the plain version's result, computed once."""
+    a = random_bytes(8192, seed=31)
+    data = a + big_mixed(2048, seed=5) + a + a[2000:8000]
+    stream, _ = JF.encode(data, dict_size=1 << 15, chunk_size=8192,
+                          parallel_groups=False)
+    groups = F.split_groups(F.scan(stream)[0])
+    assert len(groups) == 1 and len(groups[0]) >= 3
+    assert any(not c.is_lzma for c in groups[0])
+    tensors, dic_cap = _lanes_batch(stream, [groups, groups], len(stream),
+                                    len(data))
+    end = int(tensors[1][1, -1])
+    tensors[0][1, end - 12] ^= 0x24
+    return stream, data, tensors, dic_cap, G.group_decode_plain(*tensors,
+                                                                dic_cap)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_far_match_lane_matches_reference(cpu_harness, far_lane, window):
+    stream, data, tensors, dic_cap, plain = far_lane
+    assert JF.decode_chunks(stream, JF.scan(stream)[0]) == data
+    out, ok, consumed = plain
+    assert ok.tolist() == [1, 0]
+    assert out[0].numpy().tobytes() == data
+    assert int(consumed[0]) == int(tensors[1][0, -1])
+    harness = cpu_harness(*tensors, dic_cap, window=window)
+    for a, b in zip(plain, harness[:3]):
+        assert torch.equal(a, b)
+
+
+def test_corrupt_lanes_ring_equals_flat(cpu_harness, far_lane, single_chunk,
+                                        fuzz_batches):
+    """A failed lane's out and consumed are the same whether its bytes went
+    through a small ring (flushed segment by segment) or stayed in one
+    segment until the lane ended."""
+    _, _, tensors, dic_cap, _ = far_lane
+    src, pack, unpack, _ = single_chunk
+    bad = src.copy()
+    bad[3, 7] ^= 0xFF
+    one = np.ones(8, np.int32)
+    batches = [(tensors, dic_cap),
+               (_t(bad, pack[:, None], unpack[:, None], one[:, None], one),
+                CAP)]
+    batches += [(t, d) for _s, _l, t, d in fuzz_batches]
+    failed = 0
+    for tensors, dic_cap in batches:
+        ring = cpu_harness(*tensors, dic_cap, window=WINDOWS[0])
+        flat = cpu_harness(*tensors, dic_cap, window=_flat_window(dic_cap))
+        for a, b in zip(ring[:3], flat[:3]):
+            assert torch.equal(a, b)
+        failed += int(((ring[1] == 0) & (tensors[4] != 0)).sum())
+    assert failed >= 3
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +555,33 @@ def test_kernel_matches_plain_on_card(single_chunk, multi_chunk, many_chunks,
             assert torch.equal(a, b.cpu())
         n += 1
     assert G.launches == n == 6
+
+
+@pytest.mark.cuda
+def test_kernel_far_lane_and_counts_on_card(far_lane, fuzz_batches):
+    """The far-match lane and its corrupt copy, then the fuzzed batches, as
+    8 lanes per SM (a few KiB of window: the far path through `out`):
+    equal to the plain version, packets and bit calls included."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, tensors, dic_cap, _ = far_lane
+    batches = [(tensors, dic_cap)] + [(t, d) for _s, _l, t, d in fuzz_batches]
+    for tensors, dic_cap in batches:
+        reps = -(-8 * sms // tensors[0].shape[0])
+        tensors = [t.repeat(reps, *[1] * (t.dim() - 1)) for t in tensors]
+        assert G.launch_geometry(tensors[0].shape[0],
+                                 dic_cap)["blocks_per_sm"] >= 8
+        *plain, iters, bits = G.group_decode_plain(*tensors, dic_cap,
+                                                   counts=True)
+        h = G.submit_groups(*[t.cuda() for t in tensors], dic_cap=dic_cap)
+        torch.cuda.synchronize()
+        for a, b in zip(plain, (h.out, h.ok, h.consumed)):
+            assert torch.equal(a, b.cpu())
+        ok = plain[1]
+        good = ok != 0
+        assert torch.equal(iters[good], h.iterations.cpu()[good])
+        assert torch.equal(bits[good], h.bit_calls.cpu()[good])
 
 
 # ---------------------------------------------------------------------------
