@@ -17,10 +17,11 @@ Phases, each printed as one JSON line:
    groups (lc=3/lp=0 and lc=0/lp=4: three lanes per SM), then the
    many-lanes batch: 8 lanes per SM (1,056 on an H100) of 64 KiB groups cut
    from phase 3's data, one corrupted, where the launcher's dictionary
-   window shrinks to a few KiB and most matches take the far path through
-   ``out``; 8 of its lanes, the corrupt one among them, against the plain
-   version on CPU copies of them, every good lane against its original, and
-   the whole batch timed.  out, ok and consumed must be identical
+   window shrinks to a few KiB and matches that reach back further take the
+   far path through ``out``; 8 rows of that launch, the corrupt lane among
+   them, against the plain version on CPU copies of those lanes, every good
+   lane against its original, and the whole batch timed.  out, ok and
+   consumed must be identical
    (tolerance 0: the decoder is bit-exact), packets and bit calls equal on
    every lane that ends ok, and every good lane must equal its original
    bytes.
@@ -65,9 +66,9 @@ Phases 3 and 4 require output == original, K1 launches > 0, and no host
 fallback or lane retry.  The last line is the device summary; the line
 before the nvidia line lists the kernels with their launches, times and
 bounds (K1 has two: the bytes bound and the chain bound, the longest lane's
-bit calls at the probes' pure-ALU cost of a dependent call, with the window
-and blocks per SM that its launcher chose on phase 3).  Any failure exits
-non-zero.
+bit calls at the pure-ALU cost of a dependent call that phase 7 measured,
+P1 ``lane-notr``, with the window and blocks per SM that its launcher chose
+on phase 3).  Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -85,9 +86,6 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 MIB = 1 << 20
-# one dependent range-coder bit call as pure ALU chain on the H100: P1's
-# lane-notr variant, 0.53 us per iteration of 28 calls (tools/dev_v12_probe)
-NS_PER_BIT_CALL = 19.1
 
 
 def emit(obj) -> None:
@@ -233,25 +231,26 @@ def time_kernel(G, tensors, dic_cap, reps: int) -> dict:
             "bit_calls_total": int(h.bit_calls.long().sum())}
 
 
-def chain_bound_ms(bit_calls_max: int) -> float:
-    """Least time of a serial lane on the card: the longest lane's bit calls
-    at the probes' dependent pure-ALU cost of one call."""
-    return bit_calls_max * NS_PER_BIT_CALL * 1e-6
+def lane_notr_ns(p1_runs) -> float:
+    """ns of one dependent range-coder bit call as a pure ALU chain on this
+    card: the least of P1's lane-notr runs (us per iteration of 28 calls)."""
+    return min(r["ns_per_call"] for r in p1_runs
+               if r["variant"] == "lane-notr")
 
 
-def compare(G, tensors, dic_cap, device, lc=3, lp=0, pb=2):
-    """K1 on CUDA copies of a CPU batch against the plain version on it:
-    out, ok and consumed must be identical (tolerance 0: the decoder is
-    bit-exact).  Also returns the kernel's out and ok."""
+def results(h) -> list:
+    """A K1 launch's (out, ok, consumed, packets, bit calls), on the CPU."""
+    return [x.cpu() for x in (h.out, h.ok, h.consumed, h.iterations,
+                              h.bit_calls)]
+
+
+def agree(kern, plain, plain_ms: float) -> dict:
+    """K1's results against the plain version's on the same lanes: out, ok
+    and consumed must be identical (tolerance 0: the decoder is bit-exact),
+    packets and bit calls on every lane that ends ok."""
     import torch
-    t = time.perf_counter()
-    p_out, p_ok, p_cons, p_it, p_bits = G.group_decode_plain(
-        *tensors, dic_cap, lc, lp, pb, counts=True)
-    plain_ms = (time.perf_counter() - t) * 1e3
-    h = G.submit_groups(*[x.to(device) for x in tensors], dic_cap=dic_cap,
-                        lc=lc, lp=lp, pb=pb)
-    k_out, k_ok, k_cons, k_it, k_bits = (
-        x.cpu() for x in (h.out, h.ok, h.consumed, h.iterations, h.bit_calls))
+    k_out, k_ok, k_cons, k_it, k_bits = kern
+    p_out, p_ok, p_cons, p_it, p_bits = plain
     good = p_ok != 0
     return {"lanes": len(k_ok),
             "out_equal": bool(torch.equal(k_out, p_out)),
@@ -260,7 +259,23 @@ def compare(G, tensors, dic_cap, device, lc=3, lp=0, pb=2):
             "counts_equal": bool(torch.equal(k_it[good], p_it[good])
                                  and torch.equal(k_bits[good], p_bits[good])),
             "max_abs_err": int((k_out.int() - p_out.int()).abs().max()),
-            "plain_ms": plain_ms}, k_out, k_ok
+            "plain_ms": plain_ms}
+
+
+def timed_plain(G, tensors, dic_cap, lc=3, lp=0, pb=2):
+    """The plain version on CPU tensors and its ms on the host clock."""
+    t = time.perf_counter()
+    plain = G.group_decode_plain(*tensors, dic_cap, lc, lp, pb)
+    return plain, (time.perf_counter() - t) * 1e3
+
+
+def compare(G, tensors, dic_cap, device, lc=3, lp=0, pb=2):
+    """K1 on CUDA copies of a CPU batch against the plain version on it
+    (``agree``).  Also returns the kernel's out and ok."""
+    plain, plain_ms = timed_plain(G, tensors, dic_cap, lc, lp, pb)
+    kern = results(G.submit_groups(*[x.to(device) for x in tensors],
+                                   dic_cap=dic_cap, lc=lc, lp=lp, pb=pb))
+    return agree(kern, plain, plain_ms), kern[0], kern[1]
 
 
 def wide_batch(pool, n_lanes: int, text: bytes, **props):
@@ -289,11 +304,12 @@ def wide_batch(pool, n_lanes: int, text: bytes, **props):
 def many_lanes(pool, device, data: bytes) -> dict:
     """8 lanes per SM of 64 KiB groups cut from ``data``, one corrupted:
     every good lane must equal its original with ok set and consumed equal
-    to its packed size, the corrupt lane must fail alone, and 8 of the
-    lanes, the corrupt one among them, must equal the plain version on CPU
-    copies of them (lanes are independent; the plain version of all of them
-    would take many minutes).  The launcher's window is a few KiB here, so
-    most matches take the far path through ``out``."""
+    to its packed size, the corrupt lane must fail alone, and 8 rows of the
+    launch, the corrupt lane among them, must equal the plain version on
+    CPU copies of those lanes (lanes are independent; the plain version of
+    all of them would take many minutes).  The launcher's window is a few
+    KiB here, below the 64 KiB dictionary, so matches that reach back
+    further take the far path through ``out`` and the ring wraps."""
     import torch
     from lzma_sdk_zliblike_tpu_torch.models.lzma2 import framing
     from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
@@ -305,7 +321,9 @@ def many_lanes(pool, device, data: bytes) -> dict:
     stream, _ = lzma2_stream(pool.map(lambda d: lzma2_group(d, size), origs),
                              size)
     groups = framing.split_groups(framing.scan(stream)[0])
-    pack_cap = max(sum(c.pack_size for c in g) for g in groups)
+    # rounded to 4 KiB as shape_for_groups rounds it on the decode path
+    pack_cap = -(-max(sum(c.pack_size for c in g) for g in groups)
+                 // 4096) * 4096
     dec = BatchedLzma2Decoder(BatchShape(n_lanes=n, pack_cap=pack_cap,
                                          dic_cap=size), device="cpu")
     src, pe, ue, fl, act = (torch.from_numpy(a) for a in
@@ -314,11 +332,10 @@ def many_lanes(pool, device, data: bytes) -> dict:
     src[bad, int(pe[bad, -1]) // 2] ^= 0x55
     tensors = (src, pe, ue, fl, act)
     resident = [x.to(device) for x in tensors]
-    h = G.submit_groups(*resident, dic_cap=size)
-    k_out, k_ok, k_cons, k_it = (
-        x.cpu() for x in (h.out, h.ok, h.consumed, h.iterations))
+    kern = results(G.submit_groups(*resident, dic_cap=size))
+    k_out, k_ok, k_cons, k_it, _ = kern
     good = [li for li in range(n) if li != bad]
-    res = {"lanes": n, "dic_cap": size,
+    res = {"lanes": n, "dic_cap": size, "pack_cap": pack_cap,
            "geometry": G.launch_geometry(n, size, device=device),
            "originals_equal": all(
                bool(k_ok[li]) and int(k_cons[li]) == int(pe[li, -1])
@@ -329,8 +346,9 @@ def many_lanes(pool, device, data: bytes) -> dict:
     # the most far matches (a lane of near-random bytes is ~65,000 literals)
     half = sorted(good, key=lambda li: int(k_it[li]))[:len(good) // 2]
     subset = sorted([bad] + half[::len(half) // 7][:7])
-    sub, _, _ = compare(G, [x[subset].contiguous() for x in tensors], size,
-                        device)
+    plain, plain_ms = timed_plain(
+        G, [x[subset].contiguous() for x in tensors], size)
+    sub = agree([x[subset] for x in kern], plain, plain_ms)
     res["subset"] = {"lanes": subset, **sub}
     res.update(time_kernel(G, resident, size, reps=3))
     res["bound_ms"] = bound_ms(int(pe[:, -1].sum()), n * size)
@@ -795,7 +813,6 @@ def main() -> int:
     p3.update(time_kernel(G, tensors, shape.dic_cap, reps=3))
     p3["device_idle_share"] = 1 - p3["kernel_ms"] / (p3["seconds"] * 1e3)
     p3["bound_ms"] = bound_ms(int(tensors[1][:, -1].sum()), len(data))
-    p3["chain_bound_ms"] = chain_bound_ms(p3["bit_calls_max"])
     del tensors
     emit({"phase": "main", **p3})
     if not p3["pass"]:
@@ -843,6 +860,9 @@ def main() -> int:
     if not p7["pass"]:
         failed.append("probes")
 
+    # K1's chain bound: the longest lane's bit calls on main at the cost of
+    # one dependent pure-ALU bit call that phase 7 measured
+    ns_per_bit_call = lane_notr_ns(p7["P1"])
     emit({"kernels": [{
         "name": "group_decode (K1)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/group_decode.cu",
@@ -851,7 +871,8 @@ def main() -> int:
         "max_abs_err": p2["max_abs_err"], "ms": p3["kernel_ms"],
         "plain_ms": p2["plain_ms"], "plain_batch_kernel_ms": p2["kernel_ms"],
         "bound_ms": p3["bound_ms"], "bound_by": "bytes",
-        "chain_bound_ms": p3["chain_bound_ms"],
+        "chain_bound_ms": p3["bit_calls_max"] * ns_per_bit_call * 1e-6,
+        "chain_ns_per_bit_call": ns_per_bit_call,
         "library_ms": None, "iterations_max": p3["iterations_max"],
         "bit_calls_max": p3["bit_calls_max"],
         "window": p3["geometry"]["window"],

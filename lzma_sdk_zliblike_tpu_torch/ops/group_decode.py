@@ -64,8 +64,8 @@ class GroupBatch:
     out: torch.Tensor          # uint8 [S, dic_cap]
     ok: torch.Tensor           # int32 [S]
     consumed: torch.Tensor     # int32 [S]
-    iterations: torch.Tensor | None   # int32 [S] packets per lane (kernel)
-    bit_calls: torch.Tensor | None    # int32 [S] bit calls per lane (kernel)
+    iterations: torch.Tensor   # int32 [S] packets per lane
+    bit_calls: torch.Tensor    # int32 [S] range-coder bit calls per lane
 
 
 def check_tensors(specs, dev) -> None:
@@ -135,9 +135,8 @@ def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
     global launches
     _check(src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb)
     if src.device.type == "cpu":
-        out, ok, consumed = group_decode_plain(
-            src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb)
-        return GroupBatch(out, ok, consumed, None, None)
+        return GroupBatch(*group_decode_plain(
+            src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb))
     from . import _build
     fn = _build.library("group_decode").lzt_group_decode
     fn.restype = ctypes.c_int
@@ -584,15 +583,14 @@ class _Lockstep:
 
 
 def group_decode_plain(src, pack_ends, unpack_ends, flags, active,
-                       dic_cap: int, lc: int = 3, lp: int = 0, pb: int = 2,
-                       *, counts: bool = False):
+                       dic_cap: int, lc: int = 3, lp: int = 0, pb: int = 2):
     """The plain PyTorch version of K1 on CPU tensors.
 
     Same arguments as ``submit_groups``; returns (out uint8 [S, dic_cap],
-    ok int32 [S], consumed int32 [S]), and with ``counts`` also the packets
-    and the bit calls per lane (int32 [S] each).  The kernel's agree on
-    every lane that ends ok; on a failed lane they may differ, since the
-    kernel decodes the failing packet to its end before it checks."""
-    res = _Lockstep(src, pack_ends, unpack_ends, flags, active, dic_cap,
-                    lc, lp, pb).run()
-    return res if counts else res[:3]
+    ok int32 [S], consumed int32 [S], packets int32 [S], bit calls
+    int32 [S]), the fields of ``GroupBatch`` in order.  The kernel's packets
+    and bit calls agree on every lane that ends ok; on a failed lane they
+    may differ, since the kernel decodes the failing packet to its end
+    before it checks."""
+    return _Lockstep(src, pack_ends, unpack_ends, flags, active, dic_cap,
+                     lc, lp, pb).run()

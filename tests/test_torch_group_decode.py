@@ -229,12 +229,15 @@ def test_corrupt_lane_fails_alone(single_chunk):
 def test_multi_chunk_group_with_state_reset(multi_chunk):
     mstream, gdata, tables, n_body = multi_chunk
     assert JF.decode_chunks(mstream, JF.scan(mstream)[0]) == gdata
-    out, ok, consumed = G.finalize_chunks(
-        G.submit_groups(*_t(*tables), dic_cap=1536), dic_cap=1536)
+    h = G.submit_groups(*_t(*tables), dic_cap=1536)
+    out, ok, consumed = G.finalize_chunks(h, dic_cap=1536)
     assert bool(ok[0]) and not bool(ok[1]), ok
     assert ok[2:].all()                       # inactive lanes report ok
     assert int(consumed[0]) == n_body
     assert out[0].numpy().tobytes() == gdata
+    # the CPU path reports the plain version's packets and bit calls too
+    assert 0 < int(h.iterations[0]) < int(h.bit_calls[0])
+    assert int(h.iterations[2:].abs().sum()) == 0
     dec = BatchedLzma2Decoder(BatchShape(n_lanes=8, pack_cap=2048,
                                          dic_cap=2048), device="cpu")
     assert dec.decode(mstream, 0) == gdata
@@ -300,12 +303,12 @@ def _failing_plain(monkeypatch, lanes_to_fail, calls):
     plain = G.group_decode_plain
 
     def fake(*args):
-        out, ok, consumed = plain(*args)
+        out, ok, *rest = plain(*args)
         calls.append(args[0].shape[0])
         if len(calls) == 1:
             ok = ok.clone()
             ok[lanes_to_fail] = 0
-        return out, ok, consumed
+        return out, ok, *rest
     monkeypatch.setattr(G, "group_decode_plain", fake)
 
 
@@ -344,7 +347,7 @@ def test_device_reference_disagreement_raises(monkeypatch):
 
 def test_fuzzed_lanes_match_reference(fuzz_batches):
     for stream, lanes, tensors, dic_cap in fuzz_batches:
-        out, ok, consumed = G.group_decode_plain(*tensors, dic_cap)
+        out, ok, consumed, _, _ = G.group_decode_plain(*tensors, dic_cap)
         pe = tensors[1]
         for li, (good, exp) in enumerate(_reference(stream, lanes)):
             assert bool(ok[li]) == good, li
@@ -370,7 +373,7 @@ def test_from_jax_batch():
     tensors = G.from_jax_batch(meta, words)
     assert tensors[1].shape[1] == max(len(g) for g in groups)
     assert (tensors[0][:, :1024].numpy() == src).all()
-    out, ok, consumed = G.group_decode_plain(*tensors, 1024)
+    out, ok, consumed, _, _ = G.group_decode_plain(*tensors, 1024)
     assert ok.all() and int(ok[-1]) == 1       # the spare lane is inactive
     for li, g in enumerate(groups):
         exp = JF.decode_chunks(stream, g)
@@ -449,7 +452,7 @@ def test_cpu_harness_matches_plain(cpu_harness, window, single_chunk,
     n = 0
     for tensors, dic_cap in _all_batches(single_chunk, multi_chunk,
                                          many_chunks, fuzz_batches):
-        plain = G.group_decode_plain(*tensors, dic_cap)
+        plain = G.group_decode_plain(*tensors, dic_cap)[:3]
         harness = cpu_harness(*tensors, dic_cap, window=window)
         for a, b in zip(plain, harness[:3]):
             assert torch.equal(a, b)
@@ -464,8 +467,7 @@ def test_cpu_harness_counts_match_plain(cpu_harness, single_chunk, multi_chunk,
     n_ok = 0
     for tensors, dic_cap in _all_batches(single_chunk, multi_chunk,
                                          many_chunks, fuzz_batches):
-        _, ok, _, iters, bits = G.group_decode_plain(*tensors, dic_cap,
-                                                     counts=True)
+        _, ok, _, iters, bits = G.group_decode_plain(*tensors, dic_cap)
         _, h_ok, _, h_iters, h_bits = cpu_harness(*tensors, dic_cap,
                                                   window=WINDOWS[0])
         good = (ok != 0) & (tensors[4] != 0)
@@ -494,8 +496,8 @@ def far_lane():
                                     len(data))
     end = int(tensors[1][1, -1])
     tensors[0][1, end - 12] ^= 0x24
-    return stream, data, tensors, dic_cap, G.group_decode_plain(*tensors,
-                                                                dic_cap)
+    return stream, data, tensors, dic_cap, G.group_decode_plain(
+        *tensors, dic_cap)[:3]
 
 
 @pytest.mark.parametrize("window", WINDOWS)
@@ -548,7 +550,7 @@ def test_kernel_matches_plain_on_card(single_chunk, multi_chunk, many_chunks,
     n = 0
     for tensors, dic_cap in _all_batches(single_chunk, multi_chunk,
                                          many_chunks, fuzz_batches):
-        plain = G.group_decode_plain(*tensors, dic_cap)
+        plain = G.group_decode_plain(*tensors, dic_cap)[:3]
         h = G.submit_groups(*[t.cuda() for t in tensors], dic_cap=dic_cap)
         torch.cuda.synchronize()
         for a, b in zip(plain, (h.out, h.ok, h.consumed)):
@@ -572,8 +574,7 @@ def test_kernel_far_lane_and_counts_on_card(far_lane, fuzz_batches):
         tensors = [t.repeat(reps, *[1] * (t.dim() - 1)) for t in tensors]
         assert G.launch_geometry(tensors[0].shape[0],
                                  dic_cap)["blocks_per_sm"] >= 8
-        *plain, iters, bits = G.group_decode_plain(*tensors, dic_cap,
-                                                   counts=True)
+        *plain, iters, bits = G.group_decode_plain(*tensors, dic_cap)
         h = G.submit_groups(*[t.cuda() for t in tensors], dic_cap=dic_cap)
         torch.cuda.synchronize()
         for a, b in zip(plain, (h.out, h.ok, h.consumed)):
@@ -594,7 +595,7 @@ def test_jax_kernel_interpret_matches_plain(multi_chunk):
     _, gdata, tables, _ = multi_chunk
     jout, jok, jcons = P.finalize_chunks(
         P.submit_groups(*tables, dic_cap=1536, interpret=True), dic_cap=1536)
-    out, ok, consumed = G.group_decode_plain(*_t(*tables), 1536)
+    out, ok, consumed, _, _ = G.group_decode_plain(*_t(*tables), 1536)
     assert (ok.numpy() != 0).tolist() == np.asarray(jok).tolist()
     assert out[0].numpy().tobytes() == np.asarray(jout)[0].tobytes() == gdata
     assert int(consumed[0]) == int(jcons[0])
