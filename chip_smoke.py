@@ -36,20 +36,28 @@ Phases, each printed as one JSON line:
    a lane of zeros (rep and short-rep chains), a lane of ``x86_like`` data
    (matched literals), a lane whose body does not fit ``out_cap`` (it must
    fail alone) and an inactive lane; then 300 lanes of 1-3 KB at
-   lc=0/lp=4/pb=0 (several lanes per block, above 48 KB of shared memory);
-   then 6 lanes at the main path's shapes: 20-160 KB prefixes of its first
-   groups, parsed with its 1 MiB dictionary into 48 KiB chunks (up to 4 per
-   lane), coded into a buffer of its ``out_cap``.  Bodies, tab and status must be identical
-   (tolerance 0), and every good lane's bodies must equal the native
-   coder's.
+   lc=0/lp=4/pb=0; then 6 lanes at the main path's shapes: 20-160 KB
+   prefixes of its first groups, parsed with its 1 MiB dictionary into
+   48 KiB chunks (up to 4 per lane), coded into a buffer of its
+   ``out_cap``.  Bodies, tab and status (ok, bytes, err, bit calls) must be
+   identical (tolerance 0), and every good lane's bodies must equal the
+   native coder's.  Then the many-lanes encode batch: 8 lanes per SM (1,056
+   on an H100) of 64 KiB groups cut from phase 3's data with the main
+   path's dictionary and chunks, one lane's op record corrupted near op
+   1,000: timed, every good lane against the native bodies, the corrupt
+   row against the plain version run on that lane alone.
 6. encode main: ``encode_lzma2_device_coded(device="cuda")`` on the 128 MiB
    of phase 3 in 1 MiB groups with a 1 MiB dictionary.  The stream must
    equal ``encode_lzma2_mt``'s, decode to the original with Python's
    ``lzma`` and with the port's K1 (``lzma2_uncompress``), with K2 launches
    > 0 and every group coded on the card (the entry point raises on a lane
    that fails or whose bodies differ from the native coder's).  Its step
-   breakdown, kernel time (CUDA events) and bound are read from that run's
-   trace counters.
+   breakdown, K2's time and the time of each of its three launches (walk,
+   code, gather; CUDA events) and its longest lane's bit calls (status row
+   4) are read from that run's trace counters; a fresh host parse of the
+   same groups counts the bit calls of the longest lane (which must equal
+   the kernel's) and of the longest chunk, the chunks with ops and the
+   body bytes, for K2's bytes bound (with its scratch) and chain bound.
 7. probes: the bit-call microbenchmarks P1 (``tools/dev_v12_probe.py`` of
    the port, every variant at S = 32 and 128) and P2
    (``tools/compact_probe.py``, its four kernels on two seeds), each kernel
@@ -68,7 +76,10 @@ before the nvidia line lists the kernels with their launches, times and
 bounds (K1 has two: the bytes bound and the chain bound, the longest lane's
 bit calls at the pure-ALU cost of a dependent call that phase 7 measured,
 P1 ``lane-notr``, with the window and blocks per SM that its launcher chose
-on phase 3).  Any failure exits non-zero.
+on phase 3; K2 has the bytes bound with its scratch and a chain bound, an
+estimate: the larger of its longest lane's ops at P1 ``lane``'s cost of a
+dependent shared-memory update and its longest chunk's bit calls at
+``lane-notr``'s).  Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -82,6 +93,8 @@ import re
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
@@ -504,7 +517,7 @@ def encode_kernel_vs_plain(pool, device, data: bytes) -> dict:
         "ops_max": max(len(p[0]) // 2 for p in parsed),
         "native_equal": native_equal(parsed, kern, good),
         "overflow_lane_failed_alone": (
-            st[:, over].tolist() == [0, out_cap, R.ERR_OVERFLOW]
+            st[:3, over].tolist() == [0, out_cap, R.ERR_OVERFLOW]
             and all(int(st[0, li]) == 1 for li in good)),
         "inactive_lane": st[:, over + 1].tolist(),
         "kernel_ms": time_encode_kernel(
@@ -512,7 +525,7 @@ def encode_kernel_vs_plain(pool, device, data: bytes) -> dict:
     res["pass"] = (res["bodies_equal"] and res["tab_equal"]
                    and res["status_equal"] and res["native_equal"]
                    and res["overflow_lane_failed_alone"]
-                   and res["inactive_lane"] == [1, 0, 0]
+                   and res["inactive_lane"] == [1, 0, 0, 0]
                    and res["chunks_max"] > 1)
     # more than 2 x 132 lanes at lc+lp=4: blocks of 3 lanes need the raised
     # dynamic shared-memory limit
@@ -548,9 +561,58 @@ def encode_kernel_vs_plain(pool, device, data: bytes) -> dict:
     m["pass"] = (m["bodies_equal"] and m["tab_equal"] and m["status_equal"]
                  and m["native_equal"] and m["chunks_max"] >= 3)
     res["main_shape"] = m
-    for r in (w, m):
+    res["many_lanes"] = ml = encode_many_lanes(pool, device, data)
+    for r in (w, m, ml):
         res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
         res["pass"] = res["pass"] and r["pass"]
+    return res
+
+
+def encode_many_lanes(pool, device, data: bytes) -> dict:
+    """K2 on 8 lanes per SM of 64 KiB groups cut from ``data``, parsed with
+    the main path's 1 MiB dictionary and 48 KiB chunks, one lane's op record
+    corrupted near op 1,000 of its first chunk: every good lane's bodies must
+    equal the native coder's, and the corrupt row of the timed launch must
+    equal the plain version run on that lane alone (tolerance 0; the plain
+    run stops at the bad op, so it is short).  Blocks of one warp: 8 walks
+    share an SM, and each lane's two chunks code in parallel."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    from lzma_sdk_zliblike_tpu_torch.parallel import device_encode as DE
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n, size = 8 * sms, 64 << 10
+    parsed = parse_groups(pool, [data[i * size:(i + 1) * size]
+                                 for i in range(n)], DE.SUB_CHUNK,
+                          dict_size=MIB)
+    ops, ends, act, out_cap, _ = R.pack_ops_batch([p[0] for p in parsed],
+                                                  [p[1] for p in parsed])
+    bad = n // 2 + 5
+    assert int(ends[bad, 0]) > 2002
+    ops[bad, 2000] = 1 | (1 << 4)           # op 1,000: a match of length 1
+    resident = [x.to(device) for x in (ops, ends, act)]
+    R.launches = 0
+    kernel_ms = time_encode_kernel(R, resident, out_cap, reps=3)
+    h = R.submit_encode_groups(*resident, out_cap=out_cap)
+    kern = [x.cpu() for x in (h.bodies, h.tab, h.status)]
+    good = [li for li in range(n) if li != bad]
+    t = time.perf_counter()
+    plain = R.range_encode_plain(ops[bad:bad + 1], ends[bad:bad + 1],
+                                 act[bad:bad + 1], out_cap)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    row = [kern[0][bad:bad + 1], kern[1][bad:bad + 1], kern[2][:, bad:bad + 1]]
+    res = {"lanes": n, "lanes_per_sm": n // sms, "group_bytes": size,
+           "out_cap": out_cap, "chunks_max": int(ends.shape[1]),
+           "ops_max": max(len(p[0]) // 2 for p in parsed),
+           "kernel_ms": kernel_ms, "launches": R.launches,
+           "native_equal": native_equal(parsed, kern, good),
+           "corrupt_lane": bad, "corrupt_status": kern[2][:, bad].tolist(),
+           "corrupt_row_equal": all(torch.equal(a, b)
+                                    for a, b in zip(row, plain)),
+           "max_abs_err": int((row[0].int() - plain[0].int()).abs().max()),
+           "plain_ms": plain_ms}
+    res["pass"] = (res["native_equal"] and res["corrupt_row_equal"]
+                   and res["corrupt_status"][2] == R.ERR_OP
+                   and res["launches"] == 5)
     return res
 
 
@@ -584,6 +646,9 @@ def encode_main(data: bytes, device) -> dict:
            "device_lanes": snap.get("device_encode.lanes", 0),
            "ops_per_lane_max": snap.get("device_encode.ops_per_lane_max", 0),
            "kernel_ms": snap.get("range_encode.kernel_ms", 0.0),
+           "launch_ms": {step: snap.get(f"range_encode.{step}_ms", 0.0)
+                         for step in R.STEPS},
+           "bit_calls_max": snap.get("range_encode.bit_calls_max", 0),
            "breakdown_ms": {
                "parse": timer_ms("device_encode.parse"),
                "pack_and_host_to_device": timer_ms(
@@ -593,8 +658,16 @@ def encode_main(data: bytes, device) -> dict:
                "frame_and_join": timer_ms("device_encode.frame_and_join")},
            "kernel_bytes": (snap.get("device_encode.kernel_bytes_read", 0)
                             + snap.get("range_encode.bytes_written", 0))}
-    res["bound_ms"] = res["kernel_bytes"] / HBM_BYTES_PER_S * 1e3
     res["device_idle_share"] = 1 - res["kernel_ms"] / (sec * 1e3)
+    res.update(encode_counts(data, stream))
+    # the scratch, written once and read once: the coder's stream (2 bytes
+    # an entry), each body in its slot, each coded chunk's info, each lane's
+    # walk result
+    res["scratch_bytes"] = 2 * (
+        2 * res["stream_entries"] + res["body_bytes"]
+        + 16 * (res["coded_chunks"] + res["device_lanes"]))
+    res["bound_ms"] = ((res["kernel_bytes"] + res["scratch_bytes"])
+                       / HBM_BYTES_PER_S * 1e3)
     t = time.perf_counter()
     ref, ref_prop = encode_lzma2_mt(data, dict_size=MIB, chunk_size=MIB)
     res["host_mt_seconds"] = time.perf_counter() - t
@@ -605,9 +678,50 @@ def encode_main(data: bytes, device) -> dict:
     res["k1_roundtrip"] = lzma2_uncompress(stream, prop, device=device) == data
     res["pass"] = (res["equal_host_mt"] and res["lzma_module_roundtrip"]
                    and res["k1_roundtrip"] and launches > 0
+                   and res["bit_calls_max"] == res["host_bit_calls_max"]
                    and res["device_lanes"] + res["host_groups"] == groups
                    and res["device_lanes"] > 0 and res["kernel_ms"] > 0)
     return res
+
+
+def stream_entries(ops) -> int:
+    """Entries of K2's coder stream for these op records: one per
+    probability bit, and a match's direct bits in entries of at most 10."""
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    w = np.asarray(ops, np.uint32).astype(np.int64)
+    a, b = w[0::2], w[1::2]
+    far = ((a & 3) == 1) & (b >= 1 << 7)        # pos slot >= 14
+    nd = np.frexp(np.where(far, b, 1).astype(np.float64))[1] - 2  # floor(log2) - 1
+    direct = np.where(far, nd - 4, 0)
+    return int((R.op_bit_calls(ops) - direct + -(-direct // 10)).sum())
+
+
+def encode_counts(data: bytes, stream: bytes) -> dict:
+    """What K2 had to do on the encode path, counted on the host from a
+    fresh parse of the same groups (the parse is deterministic): ops and
+    bit calls of the longest lane, bit calls of the longest chunk, chunks
+    with ops, body bytes."""
+    from lzma_sdk_zliblike_tpu_torch import native
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    from lzma_sdk_zliblike_tpu_torch.parallel import device_encode as DE
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        parsed = list(pool.map(lambda a: native.lzma2_group_ops(
+            data[a:a + MIB], DE.real_dict_size(DE.encode_dict_prop(MIB)),
+            sub_size=DE.SUB_CHUNK), range(0, len(data), MIB)))
+        parsed = [p for p in parsed if not DE.needs_copy_chunks(p[1])]
+
+        def lane(p):
+            calls = np.concatenate([[0], np.cumsum(R.op_bit_calls(p[0]))])
+            per_chunk = np.diff(calls[np.concatenate([[0], p[1][:, 0] // 2])])
+            return int(calls[-1]), int(per_chunk.max()), int(
+                (per_chunk > 0).sum()), stream_entries(p[0])
+        counts = list(pool.map(lane, parsed))
+    return {"host_bit_calls_max": max(c[0] for c in counts),
+            "chunk_bit_calls_max": max(c[1] for c in counts),
+            "coded_chunks": sum(c[2] for c in counts),
+            "stream_entries": sum(c[3] for c in counts),
+            "body_bytes": sum(len(p[2]) for p in parsed),
+            "ops_total": sum(len(p[0]) // 2 for p in parsed)}
 
 
 P1_VARIANTS = ("broadcast", "masked", "fused2", "live3", "tailalways",
@@ -863,6 +977,11 @@ def main() -> int:
     # K1's chain bound: the longest lane's bit calls on main at the cost of
     # one dependent pure-ALU bit call that phase 7 measured
     ns_per_bit_call = lane_notr_ns(p7["P1"])
+    # K2's chain bound (an estimate): its walk makes one dependent
+    # shared-memory update per op, P1 ``lane``'s cost of a call; its longest
+    # chunk's coder one pure-ALU bit call per call, ``lane-notr``'s
+    ns_per_lane_call = min(r["ns_per_call"] for r in p7["P1"]
+                           if r["variant"] == "lane")
     emit({"kernels": [{
         "name": "group_decode (K1)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/group_decode.cu",
@@ -888,7 +1007,18 @@ def main() -> int:
         "max_abs_err": p5["max_abs_err"], "ms": p6["kernel_ms"],
         "plain_ms": p5["plain_ms"], "plain_batch_kernel_ms": p5["kernel_ms"],
         "bound_ms": p6["bound_ms"], "bound_by": "bytes",
+        "scratch_bytes": p6["scratch_bytes"],
+        "chain_bound_ms_estimate": max(
+            p6["ops_per_lane_max"] * ns_per_lane_call,
+            p6["chunk_bit_calls_max"] * ns_per_bit_call) * 1e-6,
+        "chain_ns_per_op": ns_per_lane_call,
+        "chain_ns_per_bit_call": ns_per_bit_call,
         "library_ms": None, "ops_per_lane_max": p6["ops_per_lane_max"],
+        "bit_calls_max": p6["bit_calls_max"],
+        "chunk_bit_calls_max": p6["chunk_bit_calls_max"],
+        "launch_ms": p6["launch_ms"],
+        "many_lanes_ms": p5["many_lanes"]["kernel_ms"],
+        "many_lanes_per_sm": p5["many_lanes"]["lanes_per_sm"],
         "main_shape_plain_ms": p5["main_shape"]["plain_ms"]}, {
         "name": "v12_probe (P1)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/v12_probe.cu",

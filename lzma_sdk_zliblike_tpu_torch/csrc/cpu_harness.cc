@@ -2,8 +2,8 @@
 // range_encode.cu (K2) run on the GPU, and of the per-element bit call of
 // the probes v12_probe.cu (P1) and compact_probe.cu (P2): the same
 // lzma_lane.cuh, lzma_enc_lane.cuh and probe_lane.cuh, compiled by g++,
-// looping over lanes or elements on the host (and, for K1, over the 32
-// threads of a lane's warp).  The tests/test_torch_*.py
+// looping over lanes or elements on the host (and, for K1 and K2, over the
+// threads of a block).  The tests/test_torch_*.py
 // files build it and hold it against the plain versions in ops/ and tools/;
 // the package never loads it.
 //
@@ -28,7 +28,7 @@ extern "C" int lzt_group_decode_cpu(const void* src, long long pack_cap,
                                     void* bit_calls, int n_lanes, int lc, int lp,
                                     int pb, int window) {
   if (window < (int)lzt::kMinWindow || (window & (window - 1))) return 1;
-  std::vector<uint16_t> probs(lzt::num_probs(lc, lp));
+  std::vector<uint16_t> probs(lzt::num_probs(lc, lp) + lzt::kT);   // + the walk's spares
   std::vector<uint8_t> inbuf(lzt::kInBuf), ring(window);
   for (int lane = 0; lane < n_lanes; ++lane) {
     lzt::LaneStatus s = {1, 0, 0, 0};
@@ -50,55 +50,76 @@ extern "C" int lzt_group_decode_cpu(const void* src, long long pack_cap,
 }
 
 // lzt_range_encode (range_encode.cu) on the host, same arguments but the
-// stream.
-extern "C" int lzt_range_encode_cpu(const void* ops, long long op_cap,
-                                    const void* op_ends, int n_chunks,
-                                    const void* active, void* out, long long out_cap,
-                                    void* tab, void* ok, void* bytes, void* err,
-                                    int n_lanes, int lc, int lp, int pb) {
-  std::vector<uint16_t> probs(lzt::num_probs(lc, lp));
+// marks and the stream: the walk of every lane, then the code step of every
+// (lane, chunk), then the gather of every lane, each playing its block's
+// threads in a loop, over the same scratch layout.
+extern "C" int lzt_range_encode_cpu(const void* ops, long long op_cap, const void* op_ends,
+                                    int n_chunks, const void* active, void* out,
+                                    long long out_cap, void* tab, void* ok, void* bytes,
+                                    void* err, void* bits, int n_lanes, int lc, int lp,
+                                    int pb, void* scratch, long long scratch_stride) {
+  using namespace lzt::enc;
+  Layout L = scratch_layout(op_cap, n_chunks);
+  if (scratch_stride < L.lane || (scratch_stride & 15)) return 1;
+  L.lane = scratch_stride;
+  std::vector<uint16_t> probs(lzt::num_probs(lc, lp) + lzt::kT);   // + the walk's spares
+  std::vector<uint32_t> ring(kOpBuf);
+  Batch batch;
+  const uint32_t* o = (const uint32_t*)ops;
+  const int32_t* ends = (const int32_t*)op_ends;
+  const int32_t* act = (const int32_t*)active;
+  uint8_t* sc = (uint8_t*)scratch;
+  const lzt::Threads warp = {0, lzt::kT};
+  for (int lane = 0; lane < n_lanes; ++lane)
+    if (act[lane])
+      walk_lane(o + lane * op_cap, (uint32_t)op_cap, ends + (int64_t)lane * n_chunks,
+                n_chunks, sc + lane * L.lane, L, probs.data(), ring.data(), batch, lc, lp,
+                pb, warp);
+  for (int lane = 0; lane < n_lanes; ++lane)
+    for (int c = 0; act[lane] && c < n_chunks; ++c)
+      code_lane_chunk(ends + (int64_t)lane * n_chunks, c, sc + lane * L.lane, L, ring.data(),
+                      warp);
   for (int lane = 0; lane < n_lanes; ++lane) {
-    int32_t* ok_l = (int32_t*)ok + lane;
-    int32_t* bytes_l = (int32_t*)bytes + lane;
-    int32_t* err_l = (int32_t*)err + lane;
-    if (!((const int32_t*)active)[lane]) {
-      *ok_l = 1;
-      *bytes_l = 0;
-      *err_l = 0;
-      continue;
-    }
-    const int64_t t = (int64_t)lane * n_chunks;
-    lzt::enc::encode_lane((const uint32_t*)ops + (int64_t)lane * op_cap, op_cap,
-                          (const int32_t*)op_ends + t, n_chunks,
-                          (uint8_t*)out + (int64_t)lane * out_cap, out_cap, probs.data(),
-                          lc, lp, pb, (int32_t*)tab + t, ok_l, bytes_l, err_l);
+    Status s = {1, 0, 0, 0};
+    if (act[lane])
+      s = gather_lane(ends + (int64_t)lane * n_chunks, (uint8_t*)out + lane * out_cap,
+                      (uint32_t)out_cap, (int32_t*)tab + (int64_t)lane * n_chunks,
+                      sc + lane * L.lane, L, ring.data(), lzt::Threads{0, kGatherT});
+    ((int32_t*)ok)[lane] = s.ok;
+    ((int32_t*)bytes)[lane] = s.bytes;
+    ((int32_t*)err)[lane] = s.err;
+    ((int32_t*)bits)[lane] = s.bits;
   }
   return 0;
 }
 
+// Bytes of scratch one lane needs (scratch_layout in lzma_enc_lane.cuh),
+// for the test that holds ops/range_encode.scratch_lane_bytes to it.
+extern "C" long long lzt_range_encode_scratch_cpu(long long op_cap, int n_chunks) {
+  return lzt::enc::scratch_layout(op_cap, n_chunks).lane;
+}
+
 // n ShiftLows of lzma_enc_lane.cuh from a given coder state, per lane
 // (low, cache, cache_size and bytes written are in/out; out_cap bytes of
-// output per lane).  For the ShiftLow unit test.
+// output per lane; err in/out, 3 once a byte would pass out_cap).  For the
+// ShiftLow unit test.
 extern "C" int lzt_shift_low_cpu(void* low, void* cache, void* cache_size, void* opos,
                                  void* err, void* out, long long out_cap, int n,
                                  int n_lanes) {
   for (int lane = 0; lane < n_lanes; ++lane) {
     lzt::enc::Coder C;
-    C.out = (uint8_t*)out + (int64_t)lane * out_cap;
-    C.cap = out_cap;
-    C.opos = ((int64_t*)opos)[lane];
-    C.probs = nullptr;
+    lzt::enc::coder_start(C, (uint8_t*)out + (int64_t)lane * out_cap, (uint32_t)out_cap);
+    C.opos = (uint32_t)((int64_t*)opos)[lane];
     C.low = ((uint64_t*)low)[lane];
-    C.range = 0xFFFFFFFFu;
     C.cache = (uint32_t)((int64_t*)cache)[lane];
-    C.cache_size = ((int64_t*)cache_size)[lane];
-    C.err = (int)((int64_t*)err)[lane];
+    C.cache_size = (uint32_t)((int64_t*)cache_size)[lane];
+    C.over = ((int64_t*)err)[lane] != 0;
     for (int i = 0; i < n; ++i) lzt::enc::shift_low(C);
     ((uint64_t*)low)[lane] = C.low;
     ((int64_t*)cache)[lane] = C.cache;
     ((int64_t*)cache_size)[lane] = C.cache_size;
     ((int64_t*)opos)[lane] = C.opos;
-    ((int64_t*)err)[lane] = C.err;
+    if (C.over && !((int64_t*)err)[lane]) ((int64_t*)err)[lane] = lzt::enc::kErrOverflow;
   }
   return 0;
 }

@@ -8,17 +8,29 @@
 // The TPU layout is left behind: 128-lane pages, packed probability
 // families, parity output windows with their DMA flushes and event bits, the
 // fused slot schedule, and the 0xFF-run workaround that flagged runs longer
-// than 3 bytes for a host retry.  A CUDA thread has its own control flow, so
-// one thread runs one lane's serial coder (lzma_enc_lane.cuh) and ShiftLow
-// writes a pending 0xFF run of any length exactly.
+// than 3 bytes for a host retry; ShiftLow writes a pending 0xFF run of any
+// length exactly.
 //
-// What bounds it on this card: the serial dependency inside a lane (every
-// bit waits on the previous range and probability), not bandwidth.  The
-// bytes bound -- op words read once plus bodies written once at 3.35 TB/s --
-// is tens of microseconds for 128 groups of 1 MiB.  This simple design does
-// nothing about that yet, by intent: one thread per lane, the lane's
-// probability model (num_probs(lc, lp) uint16) in shared memory, op words
-// read and body bytes written one at a time in the lane's rows.
+// What bounds it on this card: the serial dependencies, not bandwidth.  The
+// bytes bound -- op words read once, bodies written once, the scratch
+// written and read once -- is under a millisecond for 128 groups of 1 MiB.
+// A lane's model is one chain of dependent probability updates, and each
+// chunk's coder one chain of dependent bit calls.  The design
+// (lzma_enc_lane.cuh) takes them apart:
+//   walk    one warp per lane, one lane per block: the model in shared
+//           memory, op words staged there by a cp.async ring, 32 ops a
+//           batch, one thread per probability slot updating every op of the
+//           batch with no barrier between ops; writes the coder's stream of
+//           (probability, bit) entries into the scratch area;
+//   code    one warp per (lane, chunk): the warp stages the chunk's stream
+//           by cp.async, thread 0 range-codes it 8 entries per 16-byte load;
+//           a group's chunks code in parallel (2,816 chains instead of 128
+//           on 128 groups of 1 MiB in 48 KiB chunks), all resident at once
+//           (2 KiB of shared memory a block); bytes go straight to the
+//           chunk's slot in the scratch area, whose size is proved enough;
+//   gather  one block of 256 threads per lane: slots back to back into the
+//           bodies, tab and status.
+// The three launches run in order on the caller's stream.
 //
 // Built by ops/_build.py with nvcc for sm_90a into a shared library with a
 // plain C interface; ops/range_encode.py calls lzt_range_encode through
@@ -31,60 +43,112 @@
 
 namespace {
 
-__global__ void range_encode_kernel(
-    const uint32_t* __restrict__ ops, int64_t op_cap,
-    const int32_t* __restrict__ op_ends, int n_chunks,
-    const int32_t* __restrict__ active, uint8_t* __restrict__ out, int64_t out_cap,
-    int32_t* __restrict__ tab, int32_t* __restrict__ ok, int32_t* __restrict__ bytes,
-    int32_t* __restrict__ err, int n_lanes, int lc, int lp, int pb, int probs_stride) {
-  extern __shared__ uint16_t probs_smem[];
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  if (!active[lane]) {
-    ok[lane] = 1;
-    bytes[lane] = 0;
-    err[lane] = 0;
-    return;
+using lzt::Threads;
+using lzt::enc::Layout;
+
+// Shared memory: the op-word or stream ring; the walk adds its batch and
+// the model.
+constexpr int kRingBytes = (int)(lzt::enc::kOpBuf * 4);
+
+int walk_smem_bytes(int lc, int lp) {
+  return kRingBytes + (int)sizeof(lzt::enc::Batch) + 2 * (lzt::num_probs(lc, lp) + lzt::kT);
+}
+
+__global__ void __launch_bounds__(lzt::kT) walk_kernel(
+    const uint32_t* __restrict__ ops, uint32_t op_cap, const int32_t* __restrict__ op_ends,
+    int n_chunks, const int32_t* __restrict__ active, uint8_t* scratch, Layout L, int lc,
+    int lp, int pb) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = blockIdx.x;
+  if (!active[lane]) return;
+  uint32_t* ring = (uint32_t*)smem;
+  lzt::enc::Batch* batch = (lzt::enc::Batch*)(smem + kRingBytes);
+  uint16_t* probs = (uint16_t*)(batch + 1);
+  const int me = (int)threadIdx.x;
+  lzt::enc::walk_lane(ops + (int64_t)lane * op_cap, op_cap,
+                      op_ends + (int64_t)lane * n_chunks, n_chunks,
+                      scratch + (int64_t)lane * L.lane, L, probs, ring, *batch, lc, lp, pb,
+                      Threads{me, me + 1});
+}
+
+__global__ void __launch_bounds__(lzt::kT) code_kernel(const int32_t* __restrict__ op_ends,
+                                                       int n_chunks,
+                                                       const int32_t* __restrict__ active,
+                                                       uint8_t* scratch, Layout L) {
+  __shared__ __align__(16) uint32_t ring[lzt::enc::kOpBuf];
+  const int lane = blockIdx.x / n_chunks, c = blockIdx.x % n_chunks;
+  if (!active[lane]) return;
+  const int me = (int)threadIdx.x;
+  lzt::enc::code_lane_chunk(op_ends + (int64_t)lane * n_chunks, c,
+                            scratch + (int64_t)lane * L.lane, L, ring, Threads{me, me + 1});
+}
+
+__global__ void __launch_bounds__(lzt::enc::kGatherT) gather_kernel(
+    const int32_t* __restrict__ op_ends, int n_chunks, const int32_t* __restrict__ active,
+    uint8_t* __restrict__ out, uint32_t out_cap, int32_t* __restrict__ tab,
+    int32_t* __restrict__ ok, int32_t* __restrict__ bytes, int32_t* __restrict__ err,
+    int32_t* __restrict__ bits, const uint8_t* scratch, Layout L) {
+  __shared__ __align__(16) uint32_t ring[lzt::enc::kOpBuf];
+  const int lane = blockIdx.x;
+  lzt::enc::Status st = {1, 0, 0, 0};   // an inactive lane reports ok
+  if (active[lane]) {
+    const int me = (int)threadIdx.x;
+    st = lzt::enc::gather_lane(op_ends + (int64_t)lane * n_chunks,
+                               out + (int64_t)lane * out_cap, out_cap,
+                               tab + (int64_t)lane * n_chunks,
+                               scratch + (int64_t)lane * L.lane, L, ring,
+                               Threads{me, me + 1});
   }
-  const int64_t t = (int64_t)lane * n_chunks;
-  lzt::enc::encode_lane(ops + (int64_t)lane * op_cap, op_cap, op_ends + t, n_chunks,
-                        out + (int64_t)lane * out_cap, out_cap,
-                        probs_smem + threadIdx.x * probs_stride, lc, lp, pb, tab + t,
-                        ok + lane, bytes + lane, err + lane);
+  if (threadIdx.x == 0) {
+    ok[lane] = st.ok;
+    bytes[lane] = st.bytes;
+    err[lane] = st.err;
+    bits[lane] = st.bits;
+  }
 }
 
 }  // namespace
 
-// Launches K2 on `stream` without synchronising.  Lanes are spread over the
-// SMs first (one lane per block while there are SMs to spare); a block holds
-// as many lanes as its shared memory allows.  Returns the CUDA error code of
-// the attribute call or the launch (0 = launched).
+// Launches K2 -- walk, code and gather -- on `stream` without
+// synchronising.  `scratch` holds `scratch_stride` bytes per lane, at least
+// scratch_layout's (lzma_enc_lane.cuh); its contents on entry do not matter.
+// `marks`, if not null, points at two cudaEvent_t recorded after the walk
+// and after the code launch.  op_cap and out_cap must be below 2^31.
+// Returns the CUDA error code of the attribute calls, the launches or the
+// records (0 = launched).
 extern "C" int lzt_range_encode(const void* ops, long long op_cap, const void* op_ends,
                                 int n_chunks, const void* active, void* out,
                                 long long out_cap, void* tab, void* ok, void* bytes,
-                                void* err, int n_lanes, int lc, int lp, int pb,
+                                void* err, void* bits, int n_lanes, int lc, int lp, int pb,
+                                void* scratch, long long scratch_stride, void* marks,
                                 void* stream) {
   if (n_lanes <= 0) return 0;
-  int dev = 0, sms = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (op_cap <= 0 || op_cap >= (1ll << 31) || out_cap <= 0 || out_cap >= (1ll << 31) ||
+      n_chunks <= 0 || (long long)n_lanes * n_chunks >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  Layout L = lzt::enc::scratch_layout(op_cap, n_chunks);
+  if (scratch_stride < L.lane || (scratch_stride & 15)) return (int)cudaErrorInvalidValue;
+  L.lane = scratch_stride;
+  const int smem = walk_smem_bytes(lc, lp);
+  cudaError_t e = cudaFuncSetAttribute(walk_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int stride = (lzt::num_probs(lc, lp) + 7) & ~7;   // 16-byte rows
-  const int lane_bytes = stride * (int)sizeof(uint16_t);
-  int per_block = (n_lanes + sms - 1) / sms;
-  if (per_block * lane_bytes > smem_max) per_block = smem_max / lane_bytes;
-  if (per_block < 1) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)per_block * lane_bytes;
-  e = cudaFuncSetAttribute(range_encode_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaEvent_t* ev = (cudaEvent_t*)marks;
+  const int32_t* ends = (const int32_t*)op_ends;
+  const int32_t* act = (const int32_t*)active;
+  uint8_t* sc = (uint8_t*)scratch;
+  walk_kernel<<<n_lanes, lzt::kT, smem, s>>>((const uint32_t*)ops, (uint32_t)op_cap, ends,
+                                              n_chunks, act, sc, L, lc, lp, pb);
+  e = cudaGetLastError();
+  if (e == cudaSuccess && ev) e = cudaEventRecord(ev[0], s);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (n_lanes + per_block - 1) / per_block;
-  range_encode_kernel<<<blocks, per_block, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)ops, op_cap, (const int32_t*)op_ends, n_chunks,
-      (const int32_t*)active, (uint8_t*)out, out_cap, (int32_t*)tab, (int32_t*)ok,
-      (int32_t*)bytes, (int32_t*)err, n_lanes, lc, lp, pb, stride);
+  code_kernel<<<n_lanes * n_chunks, lzt::kT, 0, s>>>(ends, n_chunks, act, sc, L);
+  e = cudaGetLastError();
+  if (e == cudaSuccess && ev) e = cudaEventRecord(ev[1], s);
+  if (e != cudaSuccess) return (int)e;
+  gather_kernel<<<n_lanes, lzt::enc::kGatherT, 0, s>>>(
+      ends, n_chunks, act, (uint8_t*)out, (uint32_t)out_cap, (int32_t*)tab, (int32_t*)ok,
+      (int32_t*)bytes, (int32_t*)err, (int32_t*)bits, sc, L);
   return (int)cudaGetLastError();
 }

@@ -12,17 +12,24 @@ encoder's.  Per lane (the contract of ``csrc/lzma_enc_lane.cuh``):
   entries repeat the last end (a chunk with no ops writes no body);
 * ``active`` int32 [S]: an inactive lane reports ok with 0 bytes;
 * out: ``bodies`` uint8 [S, out_cap], ``tab`` int32 [S, C] (cumulative body
-  end of each finished chunk), ``status`` int32 [3, S] = ok, bytes written,
-  err (1 bad chunk table, 2 bad op record, 3 body past out_cap).  A lane
-  that fails stops alone.
+  end of each finished chunk), ``status`` int32 [4, S] = ok, bytes written,
+  err (1 bad chunk table, 2 bad op record, 3 body past out_cap), bit calls
+  (direct bits included; calls that begin after an error do not count).
+  A lane that fails stops alone.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/range_encode.cu``) or raises; on a CPU tensor it runs the plain
 version, ``range_encode_plain``, a lane-batched lockstep encoder on torch
-tensors.  ``launches`` counts kernel launches.  Each launch is bracketed by
-two CUDA events; ``finalize_encode`` adds the time between them to the
-``range_encode.kernel_ms`` counter and times its wait for the kernel and
-its copy to the host (``utils/trace.TRACE``).
+tensors.  The kernel is three CUDA launches in order -- the model walk (a
+warp per lane), the chunk coders (a warp per chunk) and the gather (a block
+per lane) -- over a scratch area of ``scratch_lane_bytes`` per lane that
+the wrapper allocates; ``launches`` counts one per ``submit_encode_groups``
+that reaches the card, whatever the number of CUDA launches.  The launches
+are bracketed by CUDA events; ``finalize_encode`` adds the whole to the
+``range_encode.kernel_ms`` counter and each launch's share to
+``range_encode.walk_ms`` / ``.code_ms`` / ``.gather_ms``, keeps the most
+bit calls of a lane (``range_encode.bit_calls_max``), and times its wait
+for the kernel and its copy to the host (``utils/trace.TRACE``).
 """
 
 from __future__ import annotations
@@ -42,11 +49,26 @@ launches = 0   # K2 launches on the card; set to 0 to start a count
 ERR_TABLE, ERR_OP, ERR_OVERFLOW = 1, 2, 3
 
 # lzt_range_encode(ops, op_cap, op_ends, n_chunks, active, out, out_cap, tab,
-#                  ok, bytes, err, n_lanes, lc, lp, pb, stream) in
-# csrc/range_encode.cu
+#                  ok, bytes, err, bits, n_lanes, lc, lp, pb, scratch,
+#                  scratch_stride, marks, stream) in csrc/range_encode.cu
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_LAUNCH_ARGTYPES = [_P, _L, _P, _I, _P, _P, _L, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _P]
+_LAUNCH_ARGTYPES = [_P, _L, _P, _I, _P, _P, _L, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _P, _L, _P, _P]
+STEPS = ("walk", "code", "gather")   # the kernel's launches, in order
+
+
+def _round16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def scratch_lane_bytes(op_cap: int, n_chunks: int) -> int:
+    """Scratch bytes one lane of the kernel holds (``scratch_layout`` in
+    ``csrc/lzma_enc_lane.cuh``): the walk's result, each chunk's stream span,
+    body length and bit calls, the coder's stream (26 bytes per op word and
+    16 per chunk) and each chunk's body slot (20 bytes per op plus 32 per
+    chunk); the bounds are proved there."""
+    return (16 + 16 * n_chunks + _round16(26 * op_cap) + 16 * n_chunks
+            + _round16(10 * op_cap) + 32 * n_chunks)
 
 
 @dataclasses.dataclass
@@ -55,9 +77,11 @@ class EncodeBatch:
 
     bodies: torch.Tensor       # uint8 [S, out_cap]
     tab: torch.Tensor          # int32 [S, C]
-    status: torch.Tensor       # int32 [3, S]: ok, bytes, err
-    start: torch.cuda.Event | None = None   # around the launch, on the card
-    end: torch.cuda.Event | None = None
+    status: torch.Tensor       # int32 [4, S]: ok, bytes, err, bit calls
+    # on the card: events before, between and after the launches, and the
+    # scratch area, held until the batch is finalized
+    marks: list | None = None
+    scratch: torch.Tensor | None = None
 
 
 def out_cap_for(max_unpack: int) -> int:
@@ -129,24 +153,28 @@ def submit_encode_groups(ops: torch.Tensor, op_ends: torch.Tensor,
     fn.restype = ctypes.c_int
     fn.argtypes = _LAUNCH_ARGTYPES
     n, n_chunks = op_ends.shape
+    op_cap = ops.shape[1]
+    stride = scratch_lane_bytes(op_cap, n_chunks)
     dev = ops.device
     with torch.cuda.device(dev):
         bodies = torch.zeros((n, out_cap), dtype=torch.uint8, device=dev)
         tab = torch.zeros((n, n_chunks), dtype=torch.int32, device=dev)
-        status = torch.empty((3, n), dtype=torch.int32, device=dev)
+        status = torch.empty((4, n), dtype=torch.int32, device=dev)
+        scratch = torch.empty((n, stride), dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        rc = fn(ops.data_ptr(), ops.shape[1], op_ends.data_ptr(), n_chunks,
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for m in marks:       # creates the events; the kernel re-records
+            m.record()        # the middle two between its launches
+        mid = (ctypes.c_void_p * 2)(marks[1].cuda_event, marks[2].cuda_event)
+        rc = fn(ops.data_ptr(), op_cap, op_ends.data_ptr(), n_chunks,
                 active.data_ptr(), bodies.data_ptr(), out_cap, tab.data_ptr(),
-                status[0].data_ptr(), status[1].data_ptr(),
-                status[2].data_ptr(), n, lc, lp, pb, stream)
-        end.record()
+                *(status[i].data_ptr() for i in range(4)), n, lc, lp, pb,
+                scratch.data_ptr(), stride, mid, stream)
+        marks[3].record()
     if rc != 0:
         raise RuntimeError(f"range_encode kernel launch failed: CUDA error {rc}")
     launches += 1
-    return EncodeBatch(bodies, tab, status, start, end)
+    return EncodeBatch(bodies, tab, status, marks, scratch)
 
 
 def finalize_encode(handle: EncodeBatch, lane_nchunks):
@@ -155,11 +183,14 @@ def finalize_encode(handle: EncodeBatch, lane_nchunks):
     Returns ``(bodies, ok, err)``: bodies[s] is the list of lane s's chunk
     bodies (None where the lane failed), ok a bool and err an int32 numpy
     array [S].  Only the bytes the lanes wrote leave the device."""
-    if handle.end is not None:
+    if handle.marks is not None:
         with TRACE.timer("range_encode.wait"):
-            handle.end.synchronize()
-        TRACE.add("range_encode.kernel_ms",
-                  handle.start.elapsed_time(handle.end))
+            handle.marks[-1].synchronize()
+        m = handle.marks
+        TRACE.add("range_encode.kernel_ms", m[0].elapsed_time(m[-1]))
+        for name, a, b in zip(STEPS, m, m[1:]):
+            TRACE.add(f"range_encode.{name}_ms", a.elapsed_time(b))
+        handle.scratch = None
     with TRACE.timer("range_encode.device_to_host"):
         status = handle.status.cpu().numpy()
         used = int(status[1].max(initial=0))
@@ -167,6 +198,7 @@ def finalize_encode(handle: EncodeBatch, lane_nchunks):
         tab = handle.tab.cpu().numpy()
     TRACE.add("range_encode.bytes_written",
               int(status[1].sum()) + 4 * (tab.size + status.size))
+    TRACE.peak("range_encode.bit_calls_max", int(status[3].max(initial=0)))
     ok = status[0] != 0
     bodies = []
     for s, nch in enumerate(lane_nchunks):
@@ -177,6 +209,23 @@ def finalize_encode(handle: EncodeBatch, lane_nchunks):
         row = flat[s]
         bodies.append([row[a:b].tobytes() for a, b in zip(ends, ends[1:])])
     return bodies, ok, status[2]
+
+
+def op_bit_calls(op_words) -> np.ndarray:
+    """Range-coder bit calls of each op record (direct bits included), as
+    the coder makes them: ``op_words`` uint32 [2 * n] -> int64 [n]."""
+    w = np.asarray(op_words, np.uint32).astype(np.int64)
+    a, b = w[0::2], w[1::2]
+    kind, ri, length = a & 3, (a >> 2) & 3, a >> 4
+    sym = length - S.MATCH_MIN_LEN
+    len_bits = np.where(sym < 8, 4, np.where(sym < 16, 5, 10))  # choices+tree
+    slot = _pos_slot(torch.from_numpy(np.where(kind == 1, b, 0))).numpy()
+    # posSlot, then spec pos (nd bits) or nd - 4 direct bits and 4 align
+    dist_bits = 6 + np.where(slot < 4, 0, (slot >> 1) - 1)
+    rep_bits = 3 + np.where(ri >= 2, 2, 1)     # isRepG0, then G1 (+ G2)
+    return np.select([kind == 0, kind == 1, kind == 2],
+                     [np.full_like(a, 9), 2 + len_bits + dist_bits,
+                      rep_bits + len_bits], 4)
 
 
 def from_jax_batch(ops_words, meta):
@@ -230,7 +279,7 @@ class _Coders:
         self.probs = probs
         self._n_probs = 0 if probs is None else probs.shape[1]
         z = torch.zeros(n, dtype=torch.int64)
-        self.low, self.cache, self.opos, self.err = z, z, z, z
+        self.low, self.cache, self.opos, self.err, self.bits = z, z, z, z, z
         self.cache_size = z + 1
         self.range = z + _M32
 
@@ -283,6 +332,7 @@ class _Coders:
             return
         if b.dtype != torch.bool:
             b = b != 0
+        self.bits = self.bits + (m & (self.err == 0)).long()
         idx = idx.clamp(0, self._n_probs - 1).unsqueeze(1)
         p = self.probs.gather(1, idx).squeeze(1)
         bound = (self.range >> S.RC_BIT_MODEL_TOTAL_BITS) * p
@@ -300,6 +350,7 @@ class _Coders:
             return
         for i in range(int(n[m].max()) - 1, -1, -1):
             mi = m & (i < n)
+            self.bits = self.bits + (mi & (self.err == 0)).long()
             self.range = torch.where(mi, self.range >> 1, self.range)
             self.low = torch.where(mi & (((v >> i) & 1) == 1),
                                    self.low + self.range, self.low)
@@ -491,7 +542,8 @@ class _Lockstep:
         status = torch.stack([
             (~self.active | (err == 0)).int(),
             torch.where(self.active, self.rc.opos, 0).int(),
-            torch.where(self.active, err, 0).int()])
+            torch.where(self.active, err, 0).int(),
+            torch.where(self.active, self.rc.bits, 0).int()])
         return self.rc.out, self.tab, status
 
 
@@ -500,5 +552,5 @@ def range_encode_plain(ops, op_ends, active, out_cap: int, lc: int = 3,
     """The plain PyTorch version of K2 on CPU tensors.
 
     Same arguments as ``submit_encode_groups``; returns (bodies uint8
-    [S, out_cap], tab int32 [S, C], status int32 [3, S])."""
+    [S, out_cap], tab int32 [S, C], status int32 [4, S])."""
     return _Lockstep(ops, op_ends, active, out_cap, lc, lp, pb).run()

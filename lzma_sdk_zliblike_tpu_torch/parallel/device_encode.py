@@ -153,7 +153,8 @@ def encode_lzma2_device_coded(data: bytes, *, dict_size: int = 1 << 20,
         if dev:
             lanes = encode_lanes(
                 len(dev), max(len(parsed[gi][0]) for gi in dev),
-                R.out_cap_for(max(e - s for s, e in spans)), device=device)
+                R.out_cap_for(max(e - s for s, e in spans)),
+                max(len(parsed[gi][1]) for gi in dev), device=device)
             pending: collections.deque = collections.deque()
             for base in range(0, len(dev), lanes):
                 batch = dev[base:base + lanes]

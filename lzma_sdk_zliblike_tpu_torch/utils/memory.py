@@ -16,8 +16,10 @@ many lanes as there are groups, one group each: more lanes beat longer
 lanes.  The lane count is the number of groups, capped by the budget; a
 stream whose groups do not fit is decoded in several batches.
 
-An encode batch (kernel K2) holds each lane's op words and its body buffer;
-``encode_lanes`` sizes it by the same budget, with the same ``INFLIGHT``.
+An encode batch (kernel K2) holds each lane's op words, chunk table, body
+buffer and the kernel's scratch (the coder's stream and a body slot per
+chunk, ``ops/range_encode.scratch_lane_bytes``); ``encode_lanes`` sizes it
+by the same budget, with the same ``INFLIGHT``.
 """
 
 from __future__ import annotations
@@ -79,19 +81,24 @@ def shape_for_groups(groups, *, device="cuda", hbm_budget: int | None = None):
                       groups_per_lane=1)
 
 
-def encode_batch_bytes(n_lanes: int, op_cap: int, out_cap: int) -> int:
+def encode_batch_bytes(n_lanes: int, op_cap: int, out_cap: int,
+                       n_chunks: int) -> int:
     """Device bytes ``INFLIGHT`` encode batches of ``n_lanes`` lanes hold.
 
-    A lane holds ``op_cap`` int32 op words and ``out_cap`` body bytes; the
-    chunk tables and status are small and ignored."""
-    return n_lanes * (4 * op_cap + out_cap) * INFLIGHT
+    A lane holds ``op_cap`` int32 op words, ``n_chunks`` int32 chunk ends
+    and tab entries, ``out_cap`` body bytes, its active flag and 4 status
+    words, and the kernel's scratch."""
+    from ..ops.range_encode import scratch_lane_bytes
+    lane = (4 * op_cap + 8 * n_chunks + out_cap + 4 * (1 + 4)
+            + scratch_lane_bytes(op_cap, n_chunks))
+    return n_lanes * lane * INFLIGHT
 
 
-def encode_lanes(n_groups: int, op_cap: int, out_cap: int, *, device="cuda",
-                 hbm_budget: int | None = None) -> int:
+def encode_lanes(n_groups: int, op_cap: int, out_cap: int, n_chunks: int, *,
+                 device="cuda", hbm_budget: int | None = None) -> int:
     """Lanes of an encode batch: one per group, capped by the budget (at
     least 1)."""
     if hbm_budget is None:
         hbm_budget = device_budget(device)
-    return max(1, min(n_groups, hbm_budget
-                      // encode_batch_bytes(1, op_cap, out_cap)))
+    return max(1, min(n_groups, hbm_budget // encode_batch_bytes(
+        1, op_cap, out_cap, n_chunks)))

@@ -173,7 +173,7 @@ def test_trace_counts_the_kernels_work(mixed):
     assert snap["device_encode.kernel_bytes_read"] == 4 * (
         sum(len(p[0]) for p in dev) + lanes * n_chunks + lanes)
     assert snap["range_encode.bytes_written"] == sum(
-        len(p[2]) for p in dev) + 4 * (lanes * n_chunks + 3 * lanes)
+        len(p[2]) for p in dev) + 4 * (lanes * n_chunks + 4 * lanes)
     for name in ("device_encode.parse", "device_encode.pack_and_host_to_device",
                  "range_encode.device_to_host"):
         assert snap[name]["count"] == 1
@@ -192,7 +192,7 @@ def test_budget_bounds_batches_on_device(monkeypatch):
     chunk = 2048
     ops_max = max(len(JN.lzma2_group_ops(data[a:a + chunk], 1 << 16)[0])
                   for a in range(0, len(data), chunk))
-    budget = M.encode_batch_bytes(2, ops_max, R.out_cap_for(chunk))
+    budget = M.encode_batch_bytes(2, ops_max, R.out_cap_for(chunk), 1)
     monkeypatch.setenv("LZT_HBM_BUDGET", str(budget))
     live, most, sizes, calls = [0], [0], [], []
     submit, finalize = R.submit_encode_groups, R.finalize_encode
@@ -200,7 +200,10 @@ def test_budget_bounds_batches_on_device(monkeypatch):
     def counting_submit(ops, op_ends, active, *, out_cap, **kw):
         live[0] += 1
         most[0] = max(most[0], live[0])
-        sizes.append(ops.numel() * 4 + ops.shape[0] * out_cap)
+        n, n_chunks = op_ends.shape
+        sizes.append(4 * (ops.numel() + 2 * op_ends.numel() + 5 * n)
+                     + n * (out_cap + R.scratch_lane_bytes(ops.shape[1],
+                                                           n_chunks)))
         return submit(ops, op_ends, active, out_cap=out_cap, **kw)
 
     def counting_finalize(handle, nch):
@@ -222,11 +225,17 @@ def test_budget_bounds_batches_on_device(monkeypatch):
 
 
 def test_encode_batch_budget():
-    assert M.encode_batch_bytes(3, 100, 5000) == 3 * (400 + 5000) * M.INFLIGHT
-    per_lane = M.encode_batch_bytes(1, 100, 5000)
-    assert M.encode_lanes(8, 100, 5000, hbm_budget=3 * per_lane) == 3
-    assert M.encode_lanes(2, 100, 5000, hbm_budget=3 * per_lane) == 2
-    assert M.encode_lanes(8, 100, 5000, hbm_budget=1) == 1
+    # op words, chunk ends and tab, bodies, active and status, scratch
+    assert M.encode_batch_bytes(3, 100, 5000, 2) == 3 * (
+        400 + 16 + 5000 + 20 + R.scratch_lane_bytes(100, 2)) * M.INFLIGHT
+    # the scratch: walk, chunk info, the coder's stream (26 B per op word
+    # + 16 per chunk), body slots (10 B per op word, 16-byte rounded, + 32
+    # per chunk)
+    assert R.scratch_lane_bytes(100, 2) == 16 + 32 + 2_608 + 32 + 1_008 + 64
+    per_lane = M.encode_batch_bytes(1, 100, 5000, 2)
+    assert M.encode_lanes(8, 100, 5000, 2, hbm_budget=3 * per_lane) == 3
+    assert M.encode_lanes(2, 100, 5000, 2, hbm_budget=3 * per_lane) == 2
+    assert M.encode_lanes(8, 100, 5000, 2, hbm_budget=1) == 1
 
 
 @pytest.mark.parametrize("props", [(3, 0, 2), (0, 4, 0), (1, 2, 1)])

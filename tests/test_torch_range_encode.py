@@ -76,8 +76,9 @@ def _assert_native(parsed, bodies, tab, status, lanes):
     """The listed lanes are ok and their bodies and tab are the native
     coder's."""
     for li in lanes:
-        _ops, ntab, nbody = parsed[li]
-        assert status[:, li].tolist() == [1, len(nbody), 0], li
+        ops, ntab, nbody = parsed[li]
+        assert status[:, li].tolist() == [
+            1, len(nbody), 0, int(R.op_bit_calls(ops).sum())], li
         assert bodies[li, :len(nbody)].numpy().tobytes() == nbody, li
         assert tab[li, :len(ntab)].tolist() == ntab[:, 2].tolist(), li
 
@@ -136,7 +137,7 @@ def test_plain_matches_native_and_jax_replay(plain_batch):
         ends = np.cumsum([len(b) for b in replay]).tolist()
         assert tab[li, :len(ntab)].tolist() == ends, li
     for li in range(len(datas), len(datas) + 2):     # inactive pad lanes
-        assert status[:, li].tolist() == [1, 0, 0]
+        assert status[:, li].tolist() == [1, 0, 0, 0]
         assert not tab[li].any() and not bodies[li].any()
 
 
@@ -160,11 +161,12 @@ def faulty_batch():
 def test_failing_lanes_fail_alone(faulty_batch):
     parsed, _, out_cap, (bodies, tab, status) = faulty_batch
     _assert_native(parsed, bodies, tab, status, (0, 1))
-    assert status[:, 2].tolist() == [0, out_cap, R.ERR_OVERFLOW]
+    assert status[:3, 2].tolist() == [0, out_cap, R.ERR_OVERFLOW]
+    assert 0 < status[3, 2] < R.op_bit_calls(parsed[2][0]).sum()
     assert bodies[2].numpy().tobytes() == parsed[2][2][:out_cap]
-    assert status[:, 3].tolist() == [0, 0, R.ERR_TABLE]
+    assert status[:, 3].tolist() == [0, 0, R.ERR_TABLE, 0]
     assert status[0, 4] == 0 and status[2, 4] == R.ERR_OP
-    assert status[:, 5].tolist() == [1, 0, 0]
+    assert status[:, 5].tolist() == [1, 0, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -179,20 +181,25 @@ def harness():
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     enc = lib.lzt_range_encode_cpu
     enc.restype = ctypes.c_int
-    enc.argtypes = [P, L, P, I, P, P, L, P, P, P, P, I, I, I, I]
+    enc.argtypes = [P, L, P, I, P, P, L, P, P, P, P, P, I, I, I, I, P, L]
     shift = lib.lzt_shift_low_cpu
     shift.restype = ctypes.c_int
     shift.argtypes = [P, P, P, P, P, P, L, I, I]
 
     def run(ops, ends, act, out_cap, lc=3, lp=0, pb=2):
+        """The three launches over a scratch area the size the wrapper
+        allocates, filled with garbage: the kernel reads only what it
+        wrote."""
         n, n_chunks = ends.shape
         bodies = torch.zeros((n, out_cap), dtype=torch.uint8)
         tab = torch.zeros((n, n_chunks), dtype=torch.int32)
-        status = torch.zeros((3, n), dtype=torch.int32)
+        status = torch.zeros((4, n), dtype=torch.int32)
+        stride = R.scratch_lane_bytes(ops.shape[1], n_chunks)
+        scratch = torch.full((n, stride), 0xA5, dtype=torch.uint8)
         assert enc(ops.data_ptr(), ops.shape[1], ends.data_ptr(), n_chunks,
                    act.data_ptr(), bodies.data_ptr(), out_cap, tab.data_ptr(),
-                   status[0].data_ptr(), status[1].data_ptr(),
-                   status[2].data_ptr(), n, lc, lp, pb) == 0
+                   *(status[i].data_ptr() for i in range(4)), n, lc, lp, pb,
+                   scratch.data_ptr(), stride) == 0
         return bodies, tab, status
 
     def shift_low(low, cache, cache_size, out_cap, n):
@@ -214,6 +221,105 @@ def test_cpu_harness_matches_plain(harness, plain_batch, faulty_batch):
     _, batch, out_cap, plain = faulty_batch
     for a, b in zip(plain, run(*batch, out_cap)):
         assert torch.equal(a, b)
+
+
+# One lane of five 4 KiB chunks (text, a repeat, zeros: 1,338 ops) whose
+# third body holds a run of two 0xFF bytes (pending bytes released
+# together), bent into the kernel's error and boundary cases.  Each case:
+# (ops, op_ends, out_cap, lc/lp/pb, the err the serial coder must meet).
+def LANE_DATA():
+    return big_mixed(2 * 4096, seed=68) + b"abcdefgh" * 1024 + bytes(4000)
+
+
+BAD_OP = 1 | (1 << 4)                # a match of length 1
+
+
+def _lane_case(name):
+    props = (0, 4, 0) if name == "lc0_lp4_pb0" else (3, 0, 2)
+    ops, tab, body = _parse([LANE_DATA()], *props)[0]
+    assert len(tab) == 5
+    ends = tab[:, 0].astype(np.int32)
+    ops = ops.copy()
+    out_cap, err = len(body) + 64, 0
+    if name == "err2_third_chunk":
+        k = (int(ends[1]) + int(ends[2])) // 4 * 2
+        ops[k] = BAD_OP
+        err = R.ERR_OP
+    elif name == "err1_middle_chunk":
+        ends[2] = ends[1] - 2
+        err = R.ERR_TABLE
+    elif name == "cap_at_lane_end":
+        out_cap = len(body)
+    elif name == "cap_one_byte_into_chunk":
+        out_cap = int(tab[2, 2]) + 1
+        err = R.ERR_OVERFLOW
+    elif name == "cap_inside_ff_run":
+        out_cap = body.index(b"\xff\xff") + 1
+        assert tab[1, 2] < out_cap < tab[2, 2]
+        err = R.ERR_OVERFLOW
+    elif name == "empty_chunks_between":
+        ends = np.array([ends[0], ends[0], ends[1], ends[2], ends[2],
+                         ends[2], ends[3], ends[4]], np.int32)
+    return ops, ends, out_cap, props, err, body
+
+
+LANE_CASES = ["err2_third_chunk", "err1_middle_chunk", "cap_at_lane_end",
+              "cap_one_byte_into_chunk", "cap_inside_ff_run",
+              "empty_chunks_between", "lc0_lp4_pb0"]
+
+
+@pytest.mark.parametrize("name", LANE_CASES)
+def test_cpu_harness_lane_cases_match_plain(harness, name):
+    """The three launches of the g++ build against the plain version on one
+    lane per case, beside an inactive lane: tolerance 0 on bodies, tab and
+    all four status rows."""
+    run, _ = harness
+    ops, ends, out_cap, props, err, body = _lane_case(name)
+    batch = (torch.from_numpy(np.stack([ops, np.zeros_like(ops)]).view(np.int32)),
+             torch.from_numpy(np.stack([ends, np.full_like(ends, ends[-1])])),
+             torch.tensor([1, 0], dtype=torch.int32))
+    plain = R.range_encode_plain(*batch, out_cap, *props)
+    for a, b in zip(plain, run(*batch, out_cap, *props)):
+        assert torch.equal(a, b), name
+    bodies, tab, status = plain
+    assert status[2, 0] == err
+    assert status[:, 1].tolist() == [1, 0, 0, 0]
+    n = int(status[1, 0])
+    assert bodies[0, :n].numpy().tobytes() == body[:n]
+    if err == R.ERR_OVERFLOW:
+        assert n == out_cap
+    if name == "err2_third_chunk":      # the bytes put before the bad op:
+        ntab = _parse([LANE_DATA()])[0][1]   # more than chunk 1's end, less
+        assert tab[0, 1] == ntab[1, 2] < n < ntab[2, 2]   # than chunk 2's
+        assert tab[0, 2] == 0
+    if name == "cap_at_lane_end":
+        assert status[:3, 0].tolist() == [1, len(body), 0]
+
+
+def test_plain_bit_calls_match_op_records(plain_batch, faulty_batch):
+    """Status row 4 of the plain version counts each op record's calls as
+    the coder makes them, direct bits included, and stops at a bad record
+    (numpy count from the records)."""
+    _, parsed, _, _, _, (_, _, status) = plain_batch
+    for li, (ops, _tab, _body) in enumerate(parsed):
+        assert int(status[3, li]) == int(R.op_bit_calls(ops).sum())
+    fparsed, (ops, _e, _a), _, (_, _, fstatus) = faulty_batch
+    assert int(fstatus[3, 4]) == int(R.op_bit_calls(
+        ops[4, :6].numpy().view(np.uint32)).sum())    # bad record at word 6
+    calls = R.op_bit_calls(parsed[0][0])
+    kinds = parsed[0][0][0::2] & 3
+    assert calls[kinds == 0].min() == calls[kinds == 0].max() == 9
+    assert calls.max() <= 48
+
+
+def test_scratch_layout_matches_kernel(harness):
+    """``scratch_lane_bytes`` mirrors the kernel's own layout."""
+    lib = _load("lzt_torch_cpu_harness", "torch_cpu_harness.py").build()
+    fn = lib.lzt_range_encode_scratch_cpu
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    for op_cap, n_chunks in ((2, 1), (727_858, 22), (1001, 300), (64, 7)):
+        assert fn(op_cap, n_chunks) == R.scratch_lane_bytes(op_cap, n_chunks)
 
 
 # coder states (low, cache, cache_size) with long pending 0xFF runs: the
@@ -327,6 +433,27 @@ def test_kernel_matches_plain_on_card(plain_batch, faulty_batch):
         for a, k in zip(want, (h.bodies, h.tab, h.status)):
             assert torch.equal(a, k.cpu())
     assert R.launches == 2
+
+
+@pytest.mark.cuda
+def test_kernel_lane_cases_on_card():
+    """The error and boundary lanes of the CPU harness test, each in its own
+    launch beside an inactive lane, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    for name in LANE_CASES:
+        ops, ends, out_cap, props, _err, _body = _lane_case(name)
+        batch = (torch.from_numpy(
+            np.stack([ops, np.zeros_like(ops)]).view(np.int32)),
+            torch.from_numpy(np.stack([ends, np.full_like(ends, ends[-1])])),
+            torch.tensor([1, 0], dtype=torch.int32))
+        want = R.range_encode_plain(*batch, out_cap, *props)
+        lc, lp, pb = props
+        h = R.submit_encode_groups(*[t.cuda() for t in batch],
+                                   out_cap=out_cap, lc=lc, lp=lp, pb=pb)
+        torch.cuda.synchronize()
+        for a, k in zip(want, (h.bodies, h.tab, h.status)):
+            assert torch.equal(a, k.cpu()), name
 
 
 # ---------------------------------------------------------------------------
