@@ -56,8 +56,7 @@ Phases, each printed as one JSON line:
    code, gather; CUDA events) and its longest lane's bit calls (status row
    4) are read from that run's trace counters; a fresh host parse of the
    same groups counts the bit calls of the longest lane (which must equal
-   the kernel's) and of the longest chunk, the chunks with ops and the
-   body bytes, for K2's bytes bound (with its scratch) and chain bound.
+   the kernel's) and of the longest chunk, for K2's chain bound.
 7. probes: the bit-call microbenchmarks P1 (``tools/dev_v12_probe.py`` of
    the port, every variant at S = 32 and 128) and P2
    (``tools/compact_probe.py``, its four kernels on two seeds), each kernel
@@ -76,10 +75,10 @@ before the nvidia line lists the kernels with their launches, times and
 bounds (K1 has two: the bytes bound and the chain bound, the longest lane's
 bit calls at the pure-ALU cost of a dependent call that phase 7 measured,
 P1 ``lane-notr``, with the window and blocks per SM that its launcher chose
-on phase 3; K2 has the bytes bound with its scratch and a chain bound, an
-estimate: the larger of its longest lane's ops at P1 ``lane``'s cost of a
-dependent shared-memory update and its longest chunk's bit calls at
-``lane-notr``'s).  Any failure exits non-zero.
+on phase 3; K2 has the bytes bound, which leaves out the scratch of its own
+design, and a chain bound, an estimate: the larger of its longest lane's ops
+at P1 ``lane``'s cost of a dependent shared-memory update and its longest
+chunk's bit calls at ``lane-notr``'s).  Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -660,14 +659,10 @@ def encode_main(data: bytes, device) -> dict:
                             + snap.get("range_encode.bytes_written", 0))}
     res["device_idle_share"] = 1 - res["kernel_ms"] / (sec * 1e3)
     res.update(encode_counts(data, stream))
-    # the scratch, written once and read once: the coder's stream (2 bytes
-    # an entry), each body in its slot, each coded chunk's info, each lane's
-    # walk result
-    res["scratch_bytes"] = 2 * (
-        2 * res["stream_entries"] + res["body_bytes"]
-        + 16 * (res["coded_chunks"] + res["device_lanes"]))
-    res["bound_ms"] = ((res["kernel_bytes"] + res["scratch_bytes"])
-                       / HBM_BYTES_PER_S * 1e3)
+    # the bytes the function must move: op words and chunk ends read, bodies,
+    # tab and status written (K2's own scratch traffic is its design's, not
+    # the function's)
+    res["bound_ms"] = res["kernel_bytes"] / HBM_BYTES_PER_S * 1e3
     t = time.perf_counter()
     ref, ref_prop = encode_lzma2_mt(data, dict_size=MIB, chunk_size=MIB)
     res["host_mt_seconds"] = time.perf_counter() - t
@@ -684,23 +679,10 @@ def encode_main(data: bytes, device) -> dict:
     return res
 
 
-def stream_entries(ops) -> int:
-    """Entries of K2's coder stream for these op records: one per
-    probability bit, and a match's direct bits in entries of at most 10."""
-    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
-    w = np.asarray(ops, np.uint32).astype(np.int64)
-    a, b = w[0::2], w[1::2]
-    far = ((a & 3) == 1) & (b >= 1 << 7)        # pos slot >= 14
-    nd = np.frexp(np.where(far, b, 1).astype(np.float64))[1] - 2  # floor(log2) - 1
-    direct = np.where(far, nd - 4, 0)
-    return int((R.op_bit_calls(ops) - direct + -(-direct // 10)).sum())
-
-
 def encode_counts(data: bytes, stream: bytes) -> dict:
     """What K2 had to do on the encode path, counted on the host from a
     fresh parse of the same groups (the parse is deterministic): ops and
-    bit calls of the longest lane, bit calls of the longest chunk, chunks
-    with ops, body bytes."""
+    bit calls of the longest lane, bit calls of the longest chunk."""
     from lzma_sdk_zliblike_tpu_torch import native
     from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
     from lzma_sdk_zliblike_tpu_torch.parallel import device_encode as DE
@@ -713,14 +695,10 @@ def encode_counts(data: bytes, stream: bytes) -> dict:
         def lane(p):
             calls = np.concatenate([[0], np.cumsum(R.op_bit_calls(p[0]))])
             per_chunk = np.diff(calls[np.concatenate([[0], p[1][:, 0] // 2])])
-            return int(calls[-1]), int(per_chunk.max()), int(
-                (per_chunk > 0).sum()), stream_entries(p[0])
+            return int(calls[-1]), int(per_chunk.max())
         counts = list(pool.map(lane, parsed))
     return {"host_bit_calls_max": max(c[0] for c in counts),
             "chunk_bit_calls_max": max(c[1] for c in counts),
-            "coded_chunks": sum(c[2] for c in counts),
-            "stream_entries": sum(c[3] for c in counts),
-            "body_bytes": sum(len(p[2]) for p in parsed),
             "ops_total": sum(len(p[0]) // 2 for p in parsed)}
 
 
@@ -1007,7 +985,6 @@ def main() -> int:
         "max_abs_err": p5["max_abs_err"], "ms": p6["kernel_ms"],
         "plain_ms": p5["plain_ms"], "plain_batch_kernel_ms": p5["kernel_ms"],
         "bound_ms": p6["bound_ms"], "bound_by": "bytes",
-        "scratch_bytes": p6["scratch_bytes"],
         "chain_bound_ms_estimate": max(
             p6["ops_per_lane_max"] * ns_per_lane_call,
             p6["chunk_bit_calls_max"] * ns_per_bit_call) * 1e-6,

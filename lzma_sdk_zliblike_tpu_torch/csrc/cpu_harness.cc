@@ -28,8 +28,8 @@ extern "C" int lzt_group_decode_cpu(const void* src, long long pack_cap,
                                     void* bit_calls, int n_lanes, int lc, int lp,
                                     int pb, int window) {
   if (window < (int)lzt::kMinWindow || (window & (window - 1))) return 1;
-  std::vector<uint16_t> probs(lzt::num_probs(lc, lp) + lzt::kT);   // + the walk's spares
-  std::vector<uint8_t> inbuf(lzt::kInBuf), ring(window);
+  std::vector<uint16_t> probs(lzt::num_probs(lc, lp));
+  std::vector<uint8_t> inbuf(lzt::kStageBuf), ring(window);
   for (int lane = 0; lane < n_lanes; ++lane) {
     lzt::LaneStatus s = {1, 0, 0, 0};
     if (((const int32_t*)active)[lane]) {
@@ -63,7 +63,7 @@ extern "C" int lzt_range_encode_cpu(const void* ops, long long op_cap, const voi
   if (scratch_stride < L.lane || (scratch_stride & 15)) return 1;
   L.lane = scratch_stride;
   std::vector<uint16_t> probs(lzt::num_probs(lc, lp) + lzt::kT);   // + the walk's spares
-  std::vector<uint32_t> ring(kOpBuf);
+  std::vector<uint8_t> ring(lzt::kStageBuf);
   Batch batch;
   const uint32_t* o = (const uint32_t*)ops;
   const int32_t* ends = (const int32_t*)op_ends;

@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(lzt::kT) group_decode_kernel(
     s = lzt::decode_lane(src + (int64_t)lane * pack_cap, pack_cap, pack_ends + t,
                          unpack_ends + t, flags + t, n_chunks,
                          out + (int64_t)lane * dic_cap, dic_cap, (uint16_t*)smem,
-                         smem + probs_bytes, smem + probs_bytes + lzt::kInBuf, window,
+                         smem + probs_bytes, smem + probs_bytes + lzt::kStageBuf, window,
                          lc, lp, pb, lzt::Threads{me, me + 1});
   }
   if (threadIdx.x == 0) {
@@ -87,7 +87,7 @@ cudaError_t geometry(int n_lanes, long long dic_cap, int lc, int lp, Geometry* g
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (e != cudaSuccess) return e;
   g->probs_bytes = ((lzt::num_probs(lc, lp) + 7) & ~7) * (int)sizeof(uint16_t);
-  const long long fixed = g->probs_bytes + (long long)lzt::kInBuf;
+  const long long fixed = g->probs_bytes + (long long)lzt::kStageBuf;
   const long long per_sm_lanes = (n_lanes + sms - 1) / sms;
   long long room = per_sm / per_sm_lanes - reserved;
   if (room > per_block) room = per_block;

@@ -65,7 +65,7 @@
 
 #include <stdint.h>
 
-#include "lzma_lane.cuh"   // probability layout, Threads, warp primitives
+#include "lzma_lane.cuh"   // probability layout, Threads, Stage, warp primitives
 
 namespace lzt {
 namespace enc {
@@ -74,8 +74,9 @@ constexpr int kErrTable = 1;
 constexpr int kErrOp = 2;
 constexpr int kErrOverflow = 3;
 
-constexpr uint32_t kOpPiece = 128;           // op words staged per piece,
-constexpr uint32_t kOpBuf = 4 * kOpPiece;    // a ring of four pieces
+// bytes a step reads from a Stage: a batch's op words (2 words for each of
+// kT ops), or the 4 kT stream entries the coder takes between two ensures
+constexpr uint32_t kAhead = 8 * kT;
 constexpr int kGatherT = 256;                // threads of a gather block
 
 // -- the scratch area of one lane ----------------------------------------------
@@ -122,102 +123,15 @@ __host__ __device__ __forceinline__ int64_t slot_offset(int c, uint32_t k0) {
   return 32 * (int64_t)c + round16(10 * (int64_t)k0);
 }
 
-// -- op words staged in shared memory -------------------------------------------
-
-// 4 bytes global -> shared without waiting for them (cp.async)
-__host__ __device__ __forceinline__ void copy4_async(uint32_t* dst, const uint32_t* src) {
+// Word k of a Stage over uint32 words (bytes 4k to 4k + 4 have landed).
+__host__ __device__ __forceinline__ uint32_t stage_word(const Stage& S, uint32_t k) {
 #ifdef __CUDA_ARCH__
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+  return *reinterpret_cast<const uint32_t*>(S.buf + ((4 * k) & (kStageBuf - 1)));
 #else
-  *dst = *src;
+  uint32_t w;
+  memcpy(&w, S.buf + ((4 * k) & (kStageBuf - 1)), 4);
+  return w;
 #endif
-}
-
-struct Stage {
-  const uint32_t* src;  // the lane's op words (global)
-  uint32_t cap;         // op_cap
-  uint32_t* buf;        // kOpBuf words
-  uint32_t ready;       // words below this have landed in buf
-  bool src16;           // row 16-byte aligned: cp.async of 4 words, else of 1
-  Threads thr;
-  uint32_t pending[3];  // the host's requested pieces, not yet copied
-  int n_pending;
-};
-
-__host__ __device__ inline void stage_copy(Stage& S, uint32_t k) {
-  uint32_t* dst = S.buf + (k & 3) * kOpPiece;
-  const uint32_t lo = k * kOpPiece;
-  const uint32_t left = lo < S.cap ? S.cap - lo : 0;
-  const uint32_t n = left < kOpPiece ? left : kOpPiece;
-  const uint32_t n4 = S.src16 ? n & ~3u : 0;
-  for (int t = S.thr.begin; t < S.thr.end; ++t) {
-    for (uint32_t i = 4 * t; i < n4; i += 4 * kT)
-      copy16_async((uint8_t*)(dst + i), (const uint8_t*)(S.src + lo + i));
-    for (uint32_t i = n4 + t; i < n; i += kT) copy4_async(dst + i, S.src + lo + i);
-  }
-}
-
-// Requests piece k as one copy group; the host copies it only at the wait
-// that needs it, as late as the card may.
-__host__ __device__ inline void stage_fetch(Stage& S, uint32_t k) {
-#ifdef __CUDA_ARCH__
-  stage_copy(S, k);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#else
-  S.pending[S.n_pending++] = k;
-#endif
-}
-
-// Waits for every requested piece but the `keep` (0 or 1) newest.
-__host__ __device__ __forceinline__ void stage_wait(Stage& S, int keep) {
-#ifdef __CUDA_ARCH__
-  if (keep)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-#else
-  const int copy = S.n_pending > keep ? S.n_pending - keep : 0;
-  for (int i = 0; i < copy; ++i) stage_copy(S, S.pending[i]);
-  for (int i = copy; i < S.n_pending; ++i) S.pending[i - copy] = S.pending[i];
-  S.n_pending -= copy;
-#endif
-}
-
-// Stages from word k on: the piece of k and the next landed, the one after
-// in flight.
-__host__ __device__ inline void stage_start(Stage& S, const uint32_t* src, uint32_t cap,
-                                            uint32_t* buf, uint32_t k, Threads thr) {
-  S.src = src;
-  S.cap = cap;
-  S.buf = buf;
-  S.src16 = ((uintptr_t)src & 15) == 0;
-  S.thr = thr;
-  S.n_pending = 0;
-  const uint32_t p = k / kOpPiece;
-  for (uint32_t i = 0; i < 3; ++i) stage_fetch(S, p + i);
-  stage_wait(S, 1);
-  warp_sync();
-  S.ready = (p + 2) * kOpPiece;
-}
-
-// A batch's op words from k on have landed.  When they have not, k is in
-// the second landed piece, so the piece before it is free: the piece in
-// flight is waited for and the next one requested into that slot.
-__host__ __device__ __forceinline__ void stage_ensure(Stage& S, uint32_t k) {
-  if (k + 2 * kT > S.ready) {
-    warp_sync();
-    stage_fetch(S, S.ready / kOpPiece + 1);
-    stage_wait(S, 1);
-    warp_sync();
-    S.ready += kOpPiece;
-  }
-}
-
-__host__ __device__ __forceinline__ void stage_end(Stage& S) { stage_wait(S, 0); }
-
-__host__ __device__ __forceinline__ uint32_t staged(const Stage& S, uint32_t k) {
-  return S.buf[k & (kOpBuf - 1)];
 }
 
 // -- the model step ------------------------------------------------------------
@@ -423,8 +337,8 @@ __host__ __device__ inline uint32_t op_entries(uint32_t a, uint32_t b, uint32_t 
 __host__ __device__ __forceinline__ uint32_t lookback_state(const Stage& S, uint32_t k,
                                                            uint32_t i, uint32_t s_in) {
   const uint32_t j0 = i > 4 ? i - 4 : 0;
-  uint32_t s = i > 4 ? ((staged(S, k + 2 * (i - 5)) & 3) ? 7 : 0) : s_in;
-  for (uint32_t j = j0; j < i; ++j) s = next_state(staged(S, k + 2 * j) & 3, s);
+  uint32_t s = i > 4 ? ((stage_word(S, k + 2 * (i - 5)) & 3) ? 7 : 0) : s_in;
+  for (uint32_t j = j0; j < i; ++j) s = next_state(stage_word(S, k + 2 * j) & 3, s);
   return s;
 }
 
@@ -443,7 +357,7 @@ __host__ __device__ inline uint32_t model_batch(const Stage& S, uint32_t k, uint
   const uint32_t nmax = room < (uint32_t)kBatch ? room : (uint32_t)kBatch;
   for (int t = thr.begin; t < thr.end; ++t) {   // op t's length, or invalid
     if ((uint32_t)t >= nmax) continue;
-    const uint32_t a = staged(S, k + 2 * t);
+    const uint32_t a = stage_word(S, k + 2 * t);
     B.len[t] = op_valid(a) ? a >> 4 : kNone;
   }
   warp_sync();
@@ -466,7 +380,7 @@ __host__ __device__ inline uint32_t model_batch(const Stage& S, uint32_t k, uint
 #endif
     if ((uint32_t)t < n) {
       B.pos[t] = len_t;
-      B.count[t] = op_entries(staged(S, k + 2 * t), staged(S, k + 2 * t + 1),
+      B.count[t] = op_entries(stage_word(S, k + 2 * t), stage_word(S, k + 2 * t + 1),
                               lookback_state(S, k, t, state), pos + len_t, lc, lp_mask,
                               pb_mask, B.e + t * kRow, B.direct[t]);
     }
@@ -589,60 +503,55 @@ __host__ __device__ __forceinline__ void normalize(Coder& C) {
   }
 }
 
-// One stream entry.  Limited (the gather's second coding of a chunk that
-// out_cap cuts): bytes past the limit set `over`, and bit calls count only
-// while it is clear.  Unlimited (the slot bound holds): no test per byte;
-// `bits` counts direct bits here and `skips` the direct and padding
-// entries, so the bit calls are the entries less skips plus bits.
-template <bool kLimited>
-__host__ __device__ __forceinline__ void code_entry(Coder& C, uint32_t q, uint32_t& skips) {
+// One stream entry.  Bit calls count while `over` is clear: only the
+// gather's second coding of a chunk that out_cap cuts reaches its limit.
+__host__ __device__ __forceinline__ void code_entry(Coder& C, uint32_t q) {
   if (q & 0x8000) {   // direct bits, most significant first (none: padding)
-    ++skips;
     for (int d = (int)((q >> 10) & 31) - 1; d >= 0; --d) {
-      C.bits += kLimited ? !C.over : 1;
+      C.bits += !C.over;
       C.range >>= 1;
       C.low += ((q >> d) & 1) ? C.range : 0;
       normalize(C);
     }
     return;
   }
-  if (kLimited) C.bits += !C.over;
+  C.bits += !C.over;
   const uint32_t bound = (C.range >> kModelBits) * (q >> 1);
   C.low += (q & 1) ? bound : 0;
   C.range = (q & 1) ? C.range - bound : bound;
   normalize(C);
 }
 
-// Four staged words from word j on (j a multiple of 4): one 16-byte load.
+// Four words of a Stage from word j on (j a multiple of 4): one 16-byte load.
 struct Quad {
   uint32_t x, y, z, w;
 };
 
-__host__ __device__ __forceinline__ Quad staged_quad(const Stage& S, uint32_t j) {
+__host__ __device__ __forceinline__ Quad stage_quad(const Stage& S, uint32_t j) {
 #ifdef __CUDA_ARCH__
-  const uint4 v = *reinterpret_cast<const uint4*>(S.buf + (j & (kOpBuf - 1)));
+  const uint4 v = *reinterpret_cast<const uint4*>(S.buf + ((4 * j) & (kStageBuf - 1)));
   return Quad{v.x, v.y, v.z, v.w};
 #else
-  return Quad{staged(S, j), staged(S, j + 1), staged(S, j + 2), staged(S, j + 3)};
+  return Quad{stage_word(S, j), stage_word(S, j + 1), stage_word(S, j + 2),
+              stage_word(S, j + 3)};
 #endif
 }
 
 // Codes stream entries [e0, e1), multiples of kQuad; the next 8 entries are
 // loaded while these 8 are coded.
-template <bool kLimited>
 __host__ __device__ __forceinline__ void code_entries(Coder& C, const Stage& S, uint32_t e0,
-                                                      uint32_t e1, uint32_t& skips) {
-  Quad q = staged_quad(S, e0 / 2);
+                                                      uint32_t e1) {
+  Quad q = stage_quad(S, e0 / 2);
   for (uint32_t j = e0 / 2; j < e1 / 2; j += 4) {
-    const Quad next = staged_quad(S, j + 4);
-    code_entry<kLimited>(C, q.x & 0xFFFF, skips);
-    code_entry<kLimited>(C, q.x >> 16, skips);
-    code_entry<kLimited>(C, q.y & 0xFFFF, skips);
-    code_entry<kLimited>(C, q.y >> 16, skips);
-    code_entry<kLimited>(C, q.z & 0xFFFF, skips);
-    code_entry<kLimited>(C, q.z >> 16, skips);
-    code_entry<kLimited>(C, q.w & 0xFFFF, skips);
-    code_entry<kLimited>(C, q.w >> 16, skips);
+    const Quad next = stage_quad(S, j + 4);
+    code_entry(C, q.x & 0xFFFF);
+    code_entry(C, q.x >> 16);
+    code_entry(C, q.y & 0xFFFF);
+    code_entry(C, q.y >> 16);
+    code_entry(C, q.z & 0xFFFF);
+    code_entry(C, q.z >> 16);
+    code_entry(C, q.w & 0xFFFF);
+    code_entry(C, q.w >> 16);
     q = next;
   }
 }
@@ -663,7 +572,7 @@ struct Info {        // per chunk
 __host__ __device__ inline void walk_lane(const uint32_t* ops, uint32_t op_cap,
                                           const int32_t* op_ends, int n_chunks,
                                           uint8_t* scratch, const Layout& L, uint16_t* probs,
-                                          uint32_t* ring, Batch& B, int lc, int lp, int pb,
+                                          uint8_t* ring, Batch& B, int lc, int lp, int pb,
                                           Threads thr) {
   const int np = num_probs(lc, lp);
   const uint32_t lp_mask = (1u << lp) - 1, pb_mask = (1u << pb) - 1;
@@ -671,7 +580,8 @@ __host__ __device__ inline void walk_lane(const uint32_t* ops, uint32_t op_cap,
     for (int i = t; i < np + kT; i += kT) probs[i] = kProbInit;   // + the spares
   warp_sync();
   Stage S;
-  stage_start(S, ops, op_cap, ring, 0, thr);
+  stage_init(S, (const uint8_t*)ops, 4 * op_cap, ring, kAhead, thr);
+  stage_seek(S, 0);
   Info* info = (Info*)(scratch + L.info);
   uint16_t* stream = (uint16_t*)(scratch + L.stream);
   uint32_t state = 0, pos = 0, k = 0, spos = 0;
@@ -686,7 +596,7 @@ __host__ __device__ inline void walk_lane(const uint32_t* ops, uint32_t op_cap,
     if (end == k) continue;
     const uint32_t begin = spos;
     while (k < (uint32_t)end) {
-      stage_ensure(S, k);
+      stage_ensure(S, 4 * k);
       bool bad;
       k += 2 * model_batch(S, k, (uint32_t)end, state, pos, bad, stream, spos, lc, lp_mask,
                            pb_mask, probs, (uint32_t)np, B, thr);
@@ -702,7 +612,7 @@ __host__ __device__ inline void walk_lane(const uint32_t* ops, uint32_t op_cap,
       info[c].end = (int32_t)spos;
     }
   }
-  stage_end(S);
+  stage_wait(S, 0);
   if (thr.begin == 0) *(Walk*)scratch = w;
 }
 
@@ -720,29 +630,25 @@ __host__ __device__ __forceinline__ void chunk_span(const int32_t* op_ends, int 
 // the stream, thread 0 codes and holds the result.
 __host__ __device__ inline Coder code_chunk(const uint8_t* scratch, const Layout& L,
                                             uint32_t e0, uint32_t e1, bool flush,
-                                            uint8_t* out, uint32_t limit, uint32_t* ring,
+                                            uint8_t* out, uint32_t limit, uint8_t* ring,
                                             Threads thr) {
   Stage S;
-  stage_start(S, (const uint32_t*)(scratch + L.stream), (uint32_t)(L.stream_bytes / 4), ring,
-              e0 / 2, thr);
+  stage_init(S, scratch + L.stream, (uint32_t)L.stream_bytes, ring, kAhead, thr);
+  stage_seek(S, 2 * e0);
   const bool lead = thr.begin == 0;
   Coder C;
   coder_start(C, out, limit);
-  const bool limited = limit != 0xFFFFFFFFu;
-  uint32_t skips = 0;
   for (uint32_t e = e0; e < e1;) {
-    stage_ensure(S, e / 2);   // words [e / 2, e / 2 + 2 kT) have landed
+    stage_ensure(S, 2 * e);   // entries [e, e + 4 kT) have landed
     const uint32_t stop = e + 4 * kT;
     const uint32_t e2 = e1 < stop ? e1 : stop;
-    if (lead && limited) code_entries<true>(C, S, e, e2, skips);
-    if (lead && !limited) code_entries<false>(C, S, e, e2, skips);
+    if (lead) code_entries(C, S, e, e2);
     warp_sync();
     e = e2;
   }
-  if (!limited) C.bits += e1 - e0 - skips;
   if (lead && flush)
     for (int i = 0; i < 5; ++i) shift_low(C);
-  stage_end(S);
+  stage_wait(S, 0);
   return C;
 }
 
@@ -750,7 +656,7 @@ __host__ __device__ inline Coder code_chunk(const uint8_t* scratch, const Layout
 // slot; its bytes and bit calls go to the lane's info.
 __host__ __device__ inline void code_lane_chunk(const int32_t* op_ends, int c,
                                                 uint8_t* scratch, const Layout& L,
-                                                uint32_t* ring, Threads thr) {
+                                                uint8_t* ring, Threads thr) {
   const Walk w = *(const Walk*)scratch;
   if (c > w.stop_chunk || (c == w.stop_chunk && w.err != kErrOp)) return;
   uint32_t k0, k1;
@@ -776,7 +682,7 @@ struct Status {
 __host__ __device__ inline Status gather_lane(const int32_t* op_ends, uint8_t* out,
                                               uint32_t out_cap, int32_t* tab,
                                               const uint8_t* scratch, const Layout& L,
-                                              uint32_t* ring, Threads thr) {
+                                              uint8_t* ring, Threads thr) {
   const Walk w = *(const Walk*)scratch;
   Status s = {0, 0, w.err, 0};
   uint32_t cum = 0, bits = 0;

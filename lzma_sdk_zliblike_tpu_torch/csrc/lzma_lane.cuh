@@ -31,11 +31,9 @@
 //
 // Memory of a lane (shared memory on the card):
 //   probs   the model, num_probs(lc, lp) uint16
-//   inbuf   kInBuf bytes staging the packed input, a ring of four pieces:
-//           two landed, the one the decoder reads and the next, and a third
-//           in flight (cp.async on the card), requested when the decoder
-//           enters the second.  The check runs once per packet, not per
-//           byte: a packet reads fewer than kPacketBytes
+//   inbuf   kStageBuf bytes staging the packed input (a Stage, below).
+//           The check runs once per packet, not per byte: a packet reads
+//           fewer than kPacketBytes
 //   ring    the last `window` output bytes, the dictionary window, a power
 //           of two >= kMinWindow, in two segments of window / 2.  Output
 //           reaches `out` only by flushes: of a segment as soon as the
@@ -103,8 +101,8 @@ __host__ __device__ __forceinline__ int num_probs(int lc, int lp) {
 
 constexpr int kT = 32;                     // threads of one lane (a warp)
 constexpr uint32_t kMaxLen = 273;          // longest match
-constexpr uint32_t kInPiece = 512;         // input staging: a ring of
-constexpr uint32_t kInBuf = 4 * kInPiece;  // four pieces
+constexpr uint32_t kPiece = 512;           // staging (Stage): a ring of
+constexpr uint32_t kStageBuf = 4 * kPiece; // four pieces
 // more than the input bytes of a packet: at most 48 bit calls (a match:
 // 1 + 1 + 10 + 6 + 26 + 4), each of which reads at most one byte
 constexpr uint32_t kPacketBytes = 64;
@@ -114,18 +112,33 @@ struct Threads {
   int begin, end;   // the thread indices t in [0, kT) this caller plays
 };
 
+// A row of global memory that a warp reads forward, staged in shared memory
+// through a ring of four pieces of kPiece bytes: the piece the reader is in
+// and the next have landed, and a third is in flight (cp.async on the card),
+// requested when the reader enters the second.  K1 stages a lane's packed
+// input through it, K2 a lane's op words and a chunk's coder stream.
+struct Stage {
+  const uint8_t* src;   // the row (global)
+  uint32_t cap;         // its bytes
+  uint8_t* buf;         // kStageBuf bytes
+  uint32_t ahead;       // bytes a step reads from its position on, <= kPiece
+  uint32_t ready;       // bytes below this have landed in buf
+  bool src16;           // row 16-byte aligned: 16-byte copies
+  Threads thr;
+  uint32_t pending[3];  // the host's requested pieces, not yet copied
+  int n_pending;
+};
+
 struct Lane {
-  const uint8_t* src;   // the lane's packed bytes (global)
+  Stage input;          // the lane's packed bytes, src[0, pack_cap)
   uint8_t* out;         // the lane's output row (global)
   uint16_t* probs;
-  uint8_t* inbuf;
   uint8_t* ring;
-  uint32_t pack_cap, window, mask, seg;
-  bool src16, out16;    // rows 16-byte aligned: 16-byte copies
+  uint32_t window, mask, seg;
+  bool out16;           // row 16-byte aligned: 16-byte copies
   Threads thr;
   uint32_t in;          // next input byte
   uint32_t in_end;      // end of the current chunk's bytes
-  uint32_t ready;       // input below this has landed in inbuf
   uint32_t pos;         // output position
   uint32_t dbase;       // output position of the last dictionary reset
   uint32_t flushed;     // out[0, flushed) is written; a multiple of seg
@@ -134,8 +147,6 @@ struct Lane {
   uint32_t prev;        // the last output byte
   uint32_t bits;        // range-coder bit calls (direct bits included)
   bool err;
-  uint32_t pending[3];  // the host's requested input pieces, not yet copied
-  int n_pending;
 };
 
 // -- the warp's primitives (plain code on the host) -------------------------
@@ -166,80 +177,91 @@ __host__ __device__ __forceinline__ void store16(uint8_t* dst, const uint8_t* sr
 #endif
 }
 
-// -- input staging ------------------------------------------------------------
+// -- staging ------------------------------------------------------------------
 
-// Copies piece k of the input, src[k * kInPiece, +kInPiece) cut at
-// pack_cap, into its slot of inbuf; with cp.async the 16-byte parts land at
-// a wait.
-__host__ __device__ inline void in_copy(Lane& L, uint32_t k) {
-  uint8_t* dst = L.inbuf + (k & 3) * kInPiece;
-  const uint32_t lo = k * kInPiece;
-  const uint32_t left = lo < L.pack_cap ? L.pack_cap - lo : 0;
-  const uint32_t n = left < kInPiece ? left : kInPiece;
-  const uint32_t n16 = L.src16 ? n & ~15u : 0;
-  for (int t = L.thr.begin; t < L.thr.end; ++t) {
-    for (uint32_t i = 16 * t; i < n16; i += 16 * kT) copy16_async(dst + i, L.src + lo + i);
-    for (uint32_t i = n16 + t; i < n; i += kT) dst[i] = L.src[lo + i];
+// Copies piece k of the row, src[k * kPiece, +kPiece) cut at cap, into its
+// slot of buf; with cp.async the 16-byte parts land at a wait.
+__host__ __device__ inline void stage_copy(Stage& S, uint32_t k) {
+  uint8_t* dst = S.buf + (k & 3) * kPiece;
+  const uint32_t lo = k * kPiece;
+  const uint32_t left = lo < S.cap ? S.cap - lo : 0;
+  const uint32_t n = left < kPiece ? left : kPiece;
+  const uint32_t n16 = S.src16 ? n & ~15u : 0;
+  for (int t = S.thr.begin; t < S.thr.end; ++t) {
+    for (uint32_t i = 16 * t; i < n16; i += 16 * kT) copy16_async(dst + i, S.src + lo + i);
+    for (uint32_t i = n16 + t; i < n; i += kT) dst[i] = S.src[lo + i];
   }
 }
 
 // Requests piece k as one copy group.  The host copies it only at the wait
 // that needs it, as late as the card may, so a piece read before its wait
 // shows in the tests.
-__host__ __device__ inline void in_fetch(Lane& L, uint32_t k) {
+__host__ __device__ inline void stage_fetch(Stage& S, uint32_t k) {
 #ifdef __CUDA_ARCH__
-  in_copy(L, k);
+  stage_copy(S, k);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 #else
-  L.pending[L.n_pending++] = k;
+  S.pending[S.n_pending++] = k;
 #endif
 }
 
 // Waits for every requested piece but the `keep` (0 or 1) newest.
-__host__ __device__ __forceinline__ void in_wait(Lane& L, int keep) {
+__host__ __device__ __forceinline__ void stage_wait(Stage& S, int keep) {
 #ifdef __CUDA_ARCH__
   if (keep)
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   else
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 #else
-  const int copy = L.n_pending > keep ? L.n_pending - keep : 0;
-  for (int i = 0; i < copy; ++i) in_copy(L, L.pending[i]);
-  for (int i = copy; i < L.n_pending; ++i) L.pending[i - copy] = L.pending[i];
-  L.n_pending -= copy;
+  const int copy = S.n_pending > keep ? S.n_pending - keep : 0;
+  for (int i = 0; i < copy; ++i) stage_copy(S, S.pending[i]);
+  for (int i = copy; i < S.n_pending; ++i) S.pending[i - copy] = S.pending[i];
+  S.n_pending -= copy;
 #endif
 }
 
-// Stages the input from byte p on: the piece of p and the next landed, the
-// one after in flight (at the lane's start and after a copy chunk, which
-// reads its bytes from src directly).
-__host__ __device__ inline void in_seek(Lane& L, uint32_t p) {
-  in_wait(L, 0);
-  warp_sync();
-  const uint32_t k = p / kInPiece;
-  for (uint32_t i = 0; i < 3; ++i) in_fetch(L, k + i);
-  in_wait(L, 1);
-  warp_sync();
-  L.ready = (k + 2) * kInPiece;
+__host__ __device__ inline void stage_init(Stage& S, const uint8_t* src, uint32_t cap,
+                                           uint8_t* buf, uint32_t ahead, Threads thr) {
+  S.src = src;
+  S.cap = cap;
+  S.buf = buf;
+  S.ahead = ahead;
+  S.ready = 0;
+  S.src16 = ((uintptr_t)src & 15) == 0;
+  S.thr = thr;
+  S.n_pending = 0;
 }
 
-// Before a packet or a chunk header: at least kPacketBytes from `in` on
-// have landed.  When fewer have, `in` is in the second landed piece, so the
-// piece before it is free: the piece in flight is waited for and the next
-// one requested into that slot.
-__host__ __device__ __forceinline__ void in_ensure(Lane& L) {
-  if (L.in + kPacketBytes > L.ready) {
+// Stages the row from byte p on: the piece of p and the next landed, the
+// one after in flight (at the start, and in K1 after a copy chunk, which
+// reads its bytes from src directly).
+__host__ __device__ inline void stage_seek(Stage& S, uint32_t p) {
+  stage_wait(S, 0);
+  warp_sync();
+  const uint32_t k = p / kPiece;
+  for (uint32_t i = 0; i < 3; ++i) stage_fetch(S, k + i);
+  stage_wait(S, 1);
+  warp_sync();
+  S.ready = (k + 2) * kPiece;
+}
+
+// Before a step that reads at most `ahead` bytes from p on and moves p at
+// most as far: those bytes have landed.  When they have not, p is in the
+// second landed piece, so the piece before it is free: the piece in flight
+// is waited for and the next one requested into that slot.
+__host__ __device__ __forceinline__ void stage_ensure(Stage& S, uint32_t p) {
+  if (p + S.ahead > S.ready) {
     warp_sync();
-    in_fetch(L, L.ready / kInPiece + 1);
-    in_wait(L, 1);
+    stage_fetch(S, S.ready / kPiece + 1);
+    stage_wait(S, 1);
     warp_sync();
-    L.ready += kInPiece;
+    S.ready += kPiece;
   }
 }
 
-// Input byte p, below `ready` (in_ensure before each packet).
-__host__ __device__ __forceinline__ uint32_t in_byte(const Lane& L, uint32_t p) {
-  return L.inbuf[p & (kInBuf - 1)];
+// Byte p, below `ready`.
+__host__ __device__ __forceinline__ uint32_t stage_byte(const Stage& S, uint32_t p) {
+  return S.buf[p & (kStageBuf - 1)];
 }
 
 // -- range decoder ------------------------------------------------------------
@@ -254,7 +276,7 @@ __host__ __device__ __forceinline__ uint32_t in_byte(const Lane& L, uint32_t p) 
 __host__ __device__ __forceinline__ void normalize(Lane& L) {
   const bool need = L.range < kTop;
   const bool take = need & (L.in < L.in_end);
-  const uint32_t byte = in_byte(L, L.in);
+  const uint32_t byte = stage_byte(L.input, L.in);
   L.err |= need & !take;
   L.range = take ? L.range << 8 : L.range;
   L.code = take ? (L.code << 8) | byte : L.code;
@@ -387,7 +409,7 @@ __host__ __device__ inline void copy_chunk(Lane& L, uint32_t n) {
     const uint32_t p = L.pos, i0 = L.in;
     warp_sync();
     for (int t = L.thr.begin; t < L.thr.end; ++t)
-      for (uint32_t j = t; j < k; j += kT) L.ring[(p + j) & L.mask] = L.src[i0 + j];
+      for (uint32_t j = t; j < k; j += kT) L.ring[(p + j) & L.mask] = L.input.src[i0 + j];
     warp_sync();
     L.prev = L.ring[(p + k - 1) & L.mask];
     L.pos += k;
@@ -395,7 +417,7 @@ __host__ __device__ inline void copy_chunk(Lane& L, uint32_t n) {
     n -= k;
     flush_full_segment(L);
   }
-  in_seek(L, L.in);
+  stage_seek(L.input, L.in);
 }
 
 __host__ __device__ inline void reset_model(Lane& L, int np) {
@@ -505,7 +527,7 @@ struct LaneStatus {
 };
 
 // Decodes one lane's chunk list.  probs holds num_probs(lc, lp) entries,
-// inbuf kInBuf bytes, ring `window` bytes (a power of two >= kMinWindow).
+// inbuf kStageBuf bytes, ring `window` bytes (a power of two >= kMinWindow).
 // Every thread of the lane returns the same status.
 __host__ __device__ inline LaneStatus decode_lane(
     const uint8_t* src, uint32_t pack_cap, const int32_t* pe, const int32_t* ue,
@@ -515,16 +537,13 @@ __host__ __device__ inline LaneStatus decode_lane(
   const int np = num_probs(lc, lp);
   const uint32_t lp_mask = (1u << lp) - 1, pb_mask = (1u << pb) - 1;
   Lane L;
-  L.src = src;
+  stage_init(L.input, src, pack_cap, inbuf, kPacketBytes, thr);
   L.out = out;
   L.probs = probs;
-  L.inbuf = inbuf;
   L.ring = ring;
-  L.pack_cap = pack_cap;
   L.window = window;
   L.mask = window - 1;
   L.seg = window / 2;
-  L.src16 = ((uintptr_t)src & 15) == 0;
   L.out16 = ((uintptr_t)out & 15) == 0;
   L.thr = thr;
   L.in = L.in_end = 0;
@@ -533,9 +552,8 @@ __host__ __device__ inline LaneStatus decode_lane(
   L.prev = 0;
   L.bits = 0;
   L.err = false;
-  L.n_pending = 0;
   reset_model(L, np);
-  in_seek(L, 0);
+  stage_seek(L.input, 0);
   int32_t iters = 0;
   for (int j = 0; j < n_chunks && !L.err; ++j) {
     const int f = fl[j];
@@ -556,20 +574,20 @@ __host__ __device__ inline LaneStatus decode_lane(
       continue;
     }
     // range coder init from the chunk's 5 header bytes; the first must be 0
-    in_ensure(L);
-    if (pend - L.in < 5 || in_byte(L, L.in) != 0) {
+    stage_ensure(L.input, L.in);
+    if (pend - L.in < 5 || stage_byte(L.input, L.in) != 0) {
       L.err = true;
       break;
     }
     L.code = 0;
-    for (int k = 1; k <= 4; ++k) L.code = (L.code << 8) | in_byte(L, L.in + k);
+    for (int k = 1; k <= 4; ++k) L.code = (L.code << 8) | stage_byte(L.input, L.in + k);
     L.range = 0xFFFFFFFFu;
     L.in += 5;
     L.in_end = (uint32_t)pend;
     const uint32_t out_end = (uint32_t)uend;
     while (L.pos < out_end) {
       ++iters;
-      in_ensure(L);
+      stage_ensure(L.input, L.in);
       if (!packet(L, out_end, lc, lp_mask, pb_mask)) {
         L.err = true;
         break;
@@ -580,12 +598,12 @@ __host__ __device__ inline LaneStatus decode_lane(
     // trailing renormalize (LzmaDec.c:412): exact input consumption
     if (L.range < kTop && L.in < pend) {
       L.range <<= 8;
-      L.code = (L.code << 8) | in_byte(L, L.in++);
+      L.code = (L.code << 8) | stage_byte(L.input, L.in++);
     }
     if (L.in != pend) L.err = true;
   }
   flush(L, L.pos);
-  in_wait(L, 0);
+  stage_wait(L.input, 0);
   LaneStatus s;
   s.ok = !L.err && L.pos == (uint32_t)ue[n_chunks - 1] && L.in == (uint32_t)pe[n_chunks - 1];
   s.consumed = (int32_t)L.in;

@@ -48,7 +48,7 @@ using lzt::enc::Layout;
 
 // Shared memory: the op-word or stream ring; the walk adds its batch and
 // the model.
-constexpr int kRingBytes = (int)(lzt::enc::kOpBuf * 4);
+constexpr int kRingBytes = (int)lzt::kStageBuf;
 
 int walk_smem_bytes(int lc, int lp) {
   return kRingBytes + (int)sizeof(lzt::enc::Batch) + 2 * (lzt::num_probs(lc, lp) + lzt::kT);
@@ -61,7 +61,7 @@ __global__ void __launch_bounds__(lzt::kT) walk_kernel(
   extern __shared__ __align__(16) uint8_t smem[];
   const int lane = blockIdx.x;
   if (!active[lane]) return;
-  uint32_t* ring = (uint32_t*)smem;
+  uint8_t* ring = smem;
   lzt::enc::Batch* batch = (lzt::enc::Batch*)(smem + kRingBytes);
   uint16_t* probs = (uint16_t*)(batch + 1);
   const int me = (int)threadIdx.x;
@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(lzt::kT) code_kernel(const int32_t* __restrict
                                                        int n_chunks,
                                                        const int32_t* __restrict__ active,
                                                        uint8_t* scratch, Layout L) {
-  __shared__ __align__(16) uint32_t ring[lzt::enc::kOpBuf];
+  __shared__ __align__(16) uint8_t ring[lzt::kStageBuf];
   const int lane = blockIdx.x / n_chunks, c = blockIdx.x % n_chunks;
   if (!active[lane]) return;
   const int me = (int)threadIdx.x;
@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(lzt::enc::kGatherT) gather_kernel(
     uint8_t* __restrict__ out, uint32_t out_cap, int32_t* __restrict__ tab,
     int32_t* __restrict__ ok, int32_t* __restrict__ bytes, int32_t* __restrict__ err,
     int32_t* __restrict__ bits, const uint8_t* scratch, Layout L) {
-  __shared__ __align__(16) uint32_t ring[lzt::enc::kOpBuf];
+  __shared__ __align__(16) uint8_t ring[lzt::kStageBuf];
   const int lane = blockIdx.x;
   lzt::enc::Status st = {1, 0, 0, 0};   // an inactive lane reports ok
   if (active[lane]) {
@@ -113,7 +113,9 @@ __global__ void __launch_bounds__(lzt::enc::kGatherT) gather_kernel(
 // synchronising.  `scratch` holds `scratch_stride` bytes per lane, at least
 // scratch_layout's (lzma_enc_lane.cuh); its contents on entry do not matter.
 // `marks`, if not null, points at two cudaEvent_t recorded after the walk
-// and after the code launch.  op_cap and out_cap must be below 2^31.
+// and after the code launch.  op_cap must be below 2^27 (the bytes of a
+// lane's coder stream, about 26 per op word, stay below 2^32) and out_cap
+// below 2^31.
 // Returns the CUDA error code of the attribute calls, the launches or the
 // records (0 = launched).
 extern "C" int lzt_range_encode(const void* ops, long long op_cap, const void* op_ends,
@@ -123,7 +125,7 @@ extern "C" int lzt_range_encode(const void* ops, long long op_cap, const void* o
                                 void* scratch, long long scratch_stride, void* marks,
                                 void* stream) {
   if (n_lanes <= 0) return 0;
-  if (op_cap <= 0 || op_cap >= (1ll << 31) || out_cap <= 0 || out_cap >= (1ll << 31) ||
+  if (op_cap <= 0 || op_cap >= (1ll << 27) || out_cap <= 0 || out_cap >= (1ll << 31) ||
       n_chunks <= 0 || (long long)n_lanes * n_chunks >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   Layout L = lzt::enc::scratch_layout(op_cap, n_chunks);

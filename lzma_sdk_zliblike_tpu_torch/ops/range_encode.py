@@ -91,6 +91,13 @@ def out_cap_for(max_unpack: int) -> int:
     return max_unpack + (max_unpack >> 3) + 4096
 
 
+def op_row_words(n_words: int) -> int:
+    """Words of a batch's op rows for a longest lane of ``n_words``: a
+    multiple of 4, so that every row is 16-byte aligned for the kernel's
+    16-byte staging copies."""
+    return max(4, -(-n_words // 4) * 4)
+
+
 def pack_ops_batch(lane_ops, lane_tabs):
     """Per-lane op streams and chunk tables (``native.lzma2_group_ops``) as
     one batch of CPU tensors.
@@ -99,7 +106,7 @@ def pack_ops_batch(lane_ops, lane_tabs):
     [S, op_cap], op_ends int32 [S, C], active int32 [S], one lane per op
     stream given; a lane with no ops is inactive."""
     n = len(lane_ops)
-    op_cap = max(2, max((len(o) for o in lane_ops), default=2))
+    op_cap = op_row_words(max((len(o) for o in lane_ops), default=0))
     n_chunks = max(1, max((len(t) for t in lane_tabs), default=1))
     ops = np.zeros((n, op_cap), np.uint32)
     ends = np.zeros((n, n_chunks), np.int32)

@@ -85,10 +85,12 @@ def encode_batch_bytes(n_lanes: int, op_cap: int, out_cap: int,
                        n_chunks: int) -> int:
     """Device bytes ``INFLIGHT`` encode batches of ``n_lanes`` lanes hold.
 
-    A lane holds ``op_cap`` int32 op words, ``n_chunks`` int32 chunk ends
-    and tab entries, ``out_cap`` body bytes, its active flag and 4 status
-    words, and the kernel's scratch."""
-    from ..ops.range_encode import scratch_lane_bytes
+    A lane holds ``op_cap`` int32 op words (rounded up as ``pack_ops_batch``
+    rounds its rows), ``n_chunks`` int32 chunk ends and tab entries,
+    ``out_cap`` body bytes, its active flag and 4 status words, and the
+    kernel's scratch."""
+    from ..ops.range_encode import op_row_words, scratch_lane_bytes
+    op_cap = op_row_words(op_cap)
     lane = (4 * op_cap + 8 * n_chunks + out_cap + 4 * (1 + 4)
             + scratch_lane_bytes(op_cap, n_chunks))
     return n_lanes * lane * INFLIGHT

@@ -390,7 +390,9 @@ def test_pack_ops_batch_layout():
     parsed = _parse([big_mixed(9_000, seed=9), bytes(3_000)])
     (ops, ends, act), out_cap = _batch(parsed, inactive=1)
     assert ops.dtype == ends.dtype == act.dtype == torch.int32
-    assert ops.shape == (3, max(len(p[0]) for p in parsed))
+    # rows of a multiple of 4 words, 16-byte aligned for the staging copies
+    assert ops.shape == (3, R.op_row_words(max(len(p[0]) for p in parsed)))
+    assert ops.shape[1] % 4 == 0
     assert act.tolist() == [1, 1, 0]
     assert out_cap == 9_000 + 9_000 // 8 + 4096
     n0 = len(parsed[0][1])
