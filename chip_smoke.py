@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's LZMA2 decode and encode paths and its
-bit-call probes on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's LZMA2 decode and encode paths, its host
+and hybrid decode engines, its xz container and its bit-call probes on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -66,6 +67,22 @@ Phases, each printed as one JSON line:
    the launch counts set to 0 just before.  Their bounds count the int32
    (and, for mxu, f32) operations of each call from the kernel source over
    the SMs' INT32 (FP32) lanes at the card's maximum SM clock.
+8. host engines, on phase 3's stream: ``engine="host"`` (host MT decode at
+   every core, no K1 launch), ``engine="hybrid"`` at every core and at one
+   host thread (``hybrid_1t``: K1's bytes must reach the output,
+   ``hybrid.dev_bytes`` > 0), each equal to the original, with its MB/s
+   beside phase 3's, its ``hybrid.*`` counters and the card's idle share
+   (the K1 launches' CUDA-event times against the call's wall time); then
+   ``hybrid_abort``: a ``progress`` callback that returns False at the
+   third group must raise ``ProgressAborted`` and leave no non-daemon
+   thread behind.
+9. xz: the port's ``containers/xz.encode`` of phase 3's data (1 MiB
+   dictionary and chunk, one block, crc64, every core), which Python's
+   ``lzma`` must read back, and ``xz.decode(engine="device")`` of it and
+   of a one-block image of 1 MiB from Python's ``lzma`` (one group over
+   256 KiB): equal to the data, K1 launched, no group on the host.  Two
+   steps of the first read are also timed alone: its LZMA2 payload through
+   ``lzma2_uncompress`` and the CRC64 of the output.
 
 Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
 one compression per group, so the original bytes are the ground truth.
@@ -848,6 +865,167 @@ def main_breakdown(stream: bytes, device):
     return tensors, shape, ms
 
 
+def engine_run(stream: bytes, prop: int, data: bytes, **kw) -> dict:
+    """One ``lzma2_uncompress`` call with the K1 count and the trace set to
+    0 just before.  Each K1 launch is bracketed by CUDA events on its
+    launch stream (the hybrid feeder's own), so the card's busy time is the
+    sum of the kernels' times (the copies to and from the card are not in
+    it) and the idle share is the rest of the call's wall time."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch import lzma2_uncompress
+    from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
+    from lzma_sdk_zliblike_tpu_torch.utils.trace import TRACE
+    marks, submit = [], G.submit_groups
+
+    def timed_submit(*args, **kwargs):
+        m = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        m[0].record()
+        h = submit(*args, **kwargs)
+        m[1].record()
+        marks.append(m)
+        return h
+    G.submit_groups = timed_submit
+    try:
+        G.launches = 0
+        TRACE.reset()
+        t = time.perf_counter()
+        out = lzma2_uncompress(stream, prop, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+    finally:
+        G.submit_groups = submit
+    snap = TRACE.snapshot()
+    busy_ms = sum(a.elapsed_time(b) for a, b in marks)
+    return {"bytes": len(data), "seconds": sec,
+            "mb_per_s": len(data) / sec / 1e6, "launches": G.launches,
+            "kernel_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (sec * 1e3),
+            "host_fallback_groups": snap.get("scheduler.host_fallback_groups",
+                                             0),
+            "lane_retries": snap.get("scheduler.lane_retries", 0),
+            "hybrid": {k.split(".", 1)[1]: v for k, v in snap.items()
+                       if k.startswith("hybrid.")},
+            "output_equal": out == data}
+
+
+def host_engines(stream: bytes, prop: int, data: bytes, main_mb_s: float,
+                 device) -> list:
+    """The host MT engine, the hybrid engine at every core and at one host
+    thread, and an abort of the hybrid engine at its third group, on the
+    main stream.  Returns the phases' results, in that order."""
+    import threading
+    from lzma_sdk_zliblike_tpu_torch import lzma2_uncompress
+    from lzma_sdk_zliblike_tpu_torch.models.lzma2 import framing
+    from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
+    from lzma_sdk_zliblike_tpu_torch.parallel.host_pool import (
+        normalize_threads)
+    from lzma_sdk_zliblike_tpu_torch.utils.errors import ProgressAborted
+    n_groups = len(framing.split_groups(framing.scan(stream)[0]))
+    host = engine_run(stream, prop, data, engine="host")
+    host.update(cpu_count=os.cpu_count(),
+                threads=normalize_threads(None, n_groups))
+    host["pass"] = host["output_equal"] and host["launches"] == 0
+    hyb = engine_run(stream, prop, data, engine="hybrid", device=device)
+    hyb.update(threads=os.cpu_count(), main_mb_per_s=main_mb_s,
+               host_mt_mb_per_s=host["mb_per_s"])
+    hyb["pass"] = hyb["output_equal"] and hyb["launches"] > 0
+    one = engine_run(stream, prop, data, engine="hybrid", device=device,
+                     threads=1)
+    one.update(threads=1, main_mb_per_s=main_mb_s,
+               host_mt_mb_per_s=host["mb_per_s"])
+    one["pass"] = (one["output_equal"] and one["launches"] > 0
+                   and one["hybrid"].get("dev_bytes", 0) > 0)
+    calls = []
+
+    def stop_at_third(_in, _out):
+        calls.append(_out)
+        return len(calls) < 3
+    G.launches = 0
+    t = time.perf_counter()
+    raised = None
+    try:
+        lzma2_uncompress(stream, prop, engine="hybrid", device=device,
+                         progress=stop_at_third)
+    except ProgressAborted as e:
+        raised = type(e).__name__
+    sec = time.perf_counter() - t
+    left = [th.name for th in threading.enumerate()
+            if th is not threading.main_thread() and not th.daemon]
+    abort = {"seconds_to_raise": sec, "raised": raised,
+             "launches": G.launches, "callbacks": len(calls),
+             "non_daemon_threads_left": left,
+             "pass": raised == "ProgressAborted" and not left}
+    return [host, hyb, one, abort]
+
+
+def xz_phase(data: bytes, device) -> dict:
+    """The port's xz writer on the main data (1 MiB dictionary and chunk,
+    one block, crc64, every core), read back by Python's ``lzma`` and by
+    the port's reader on the card; then a one-block image from Python's
+    ``lzma`` (one group of 1 MiB) read on the card."""
+    from lzma_sdk_zliblike_tpu_torch.containers import xz
+    t = time.perf_counter()
+    img = xz.encode(data, check="crc64", dict_size=MIB, chunk_size=MIB,
+                    threads=os.cpu_count())
+    enc_s = time.perf_counter() - t
+    blocks = sum(len(i.blocks) for i in xz.read_backward(img))
+    lzma_equal = lzma.decompress(img) == data
+    run = xz_run(img, data, device)
+    run["steps_ms"] = xz_steps(img, data, device)
+    small = corpus(MIB)
+    simg = lzma.compress(small, format=lzma.FORMAT_XZ)
+    srun = xz_run(simg, small, device)
+    res = {"packed": len(img), "blocks": blocks, "encode_seconds": enc_s,
+           "encode_mb_per_s": len(data) / enc_s / 1e6,
+           "python_lzma_equal": lzma_equal, **run, "liblzma_block": srun}
+    res["pass"] = (lzma_equal and blocks == 1 and run["pass"]
+                   and srun["pass"])
+    return res
+
+
+def xz_steps(img: bytes, data: bytes, device) -> dict:
+    """Two steps of the reader, each alone on the host clock (ms): the
+    block's LZMA2 payload through ``lzma2_uncompress`` on the card, and the
+    CRC64 of the output; the rest of ``xz.decode`` is the container."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch import lzma2_uncompress
+    from lzma_sdk_zliblike_tpu_torch.containers import xz
+    from lzma_sdk_zliblike_tpu_torch.models.lzma2 import framing
+    from lzma_sdk_zliblike_tpu_torch.utils.checksums import crc64
+    blk = xz._parse_block_header(img, 12)
+    payload = img[blk.data_off:framing.scan(img, blk.data_off)[1]]
+    t = time.perf_counter()
+    out = lzma2_uncompress(payload, blk.filters[-1].props[0], device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    crc64(out)
+    t2 = time.perf_counter()
+    if out != data:
+        raise RuntimeError("the xz block's payload decoded wrong")
+    return {"lzma2_uncompress": (t1 - t) * 1e3, "crc64": (t2 - t1) * 1e3}
+
+
+def xz_run(img: bytes, data: bytes, device) -> dict:
+    """``xz.decode(engine="device")`` of one image with the counts set to 0
+    just before: equal to ``data``, K1 launched, no group on the host."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.containers import xz
+    from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
+    from lzma_sdk_zliblike_tpu_torch.utils.trace import TRACE
+    G.launches = 0
+    TRACE.reset()
+    t = time.perf_counter()
+    out = xz.decode(img, engine="device", device=device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    fallback = TRACE.snapshot().get("scheduler.host_fallback_groups", 0)
+    res = {"seconds": sec, "mb_per_s": len(data) / sec / 1e6,
+           "launches": G.launches, "host_fallback_groups": fallback,
+           "output_equal": out == data}
+    res["pass"] = out == data and G.launches > 0 and fallback == 0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -952,6 +1130,20 @@ def main() -> int:
     if not p7["pass"]:
         failed.append("probes")
 
+    # -- 8. host MT and hybrid decode of the main stream ---------------------
+    ph = host_engines(stream, prop, data, p3["mb_per_s"], device)
+    for name, res in zip(("host_mt", "hybrid", "hybrid_1t", "hybrid_abort"),
+                         ph):
+        emit({"phase": name, **res})
+        if not res["pass"]:
+            failed.append(name)
+
+    # -- 9. xz: the port's writer, its reader on the card ---------------------
+    p9 = xz_phase(data, device)
+    emit({"phase": "xz", **p9})
+    if not p9["pass"]:
+        failed.append("xz")
+
     # K1's chain bound: the longest lane's bit calls on main at the cost of
     # one dependent pure-ALU bit call that phase 7 measured
     ns_per_bit_call = lane_notr_ns(p7["P1"])
@@ -977,7 +1169,12 @@ def main() -> int:
         "many_lanes_ms": p2["many_lanes"]["kernel_ms"],
         "many_lanes_window": p2["many_lanes"]["geometry"]["window"],
         "bigblock_launches": p4["launches"],
-        "bigblock_seconds": p4["seconds"]}, {
+        "bigblock_seconds": p4["seconds"],
+        "hybrid_launches": ph[1]["launches"],
+        "hybrid_1t_launches": ph[2]["launches"],
+        "hybrid_abort_launches": ph[3]["launches"],
+        "xz_launches": p9["launches"],
+        "xz_liblzma_block_launches": p9["liblzma_block"]["launches"]}, {
         "name": "range_encode (K2)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/range_encode.cu",
         "replaces": "lzma_sdk_zliblike_tpu/ops/pallas_encode.py:78",

@@ -1,15 +1,23 @@
 """PyTorch/CUDA port of lzma_sdk_zliblike_tpu: LZMA2 on an NVIDIA GPU.
 
 Dict-reset groups of a raw LZMA2 stream decode lane-parallel in a CUDA
-kernel written for Hopper (sm_90a, K1); device-coded encode parses groups
-on host threads and range-codes them lane-parallel in a second one (K2).
+kernel written for Hopper (sm_90a, K1), alone, beside host threads on one
+group queue (``decode_lzma2_hybrid``), or on host threads alone
+(``decode_lzma2_mt``); device-coded encode parses groups on host threads and
+range-codes them lane-parallel in a second one (K2).  ``containers/xz.py``
+reads and writes .xz images, its blocks decoded through the same engines.
 ``device="cpu"`` runs the kernels' plain PyTorch versions instead.
 """
 
 from .api import lzma2_uncompress
 from .parallel.device_encode import encode_lzma2_device_coded
-from .utils.errors import (DataError, InputEofError, LzmaError, ParamError,
+from .parallel.host_pool import decode_lzma2_mt
+from .parallel.hybrid import decode_lzma2_hybrid
+from .utils.errors import (ArchiveError, CrcError, DataError, InputEofError,
+                           LzmaError, ParamError, ProgressAborted,
                            UnsupportedError)
 
-__all__ = ["lzma2_uncompress", "encode_lzma2_device_coded", "LzmaError",
-           "DataError", "InputEofError", "ParamError", "UnsupportedError"]
+__all__ = ["lzma2_uncompress", "encode_lzma2_device_coded",
+           "decode_lzma2_mt", "decode_lzma2_hybrid", "LzmaError",
+           "DataError", "CrcError", "InputEofError", "ParamError",
+           "ProgressAborted", "ArchiveError", "UnsupportedError"]

@@ -1,9 +1,10 @@
 """ctypes bindings to the port's own copy of the native C++ runtime.
 
-The counterpart of the JAX package's ``native.py``, for the two calls the
-encode path needs: ``lzt_lzma2_group_ops`` (the fast parse of one dict-reset
-group, exporting op records for the range-encode kernel) and
-``lzt_lzma2_encode`` (the host LZMA2 encoder).  The source is
+The counterpart of the JAX package's ``native.py``, for the calls the port
+needs: ``lzt_lzma2_group_ops`` (the fast parse of one dict-reset group,
+exporting op records for the range-encode kernel), ``lzt_lzma2_encode`` and
+``lzt_lzma2_decode`` (the host LZMA2 encoder and decoder) and ``lzt_crc64``
+(the xz container's CRC64).  The source is
 ``csrc/host/lzt_codec.cc``, one self-contained translation unit.  At first
 use it is built with g++ into ``build/torch_host/liblzt_host_<hash>.so``
 (the hash covers the source and the flags, so an edited source is rebuilt),
@@ -79,6 +80,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,         # lc lp pb
         ctypes.c_int, ctypes.POINTER(ctypes.c_int),       # effort, prop_out
     ]
+    lib.lzt_lzma2_decode.restype = ctypes.c_int
+    lib.lzt_lzma2_decode.argtypes = [
+        u8p, ctypes.c_size_t,
+        u8p, ctypes.POINTER(ctypes.c_size_t),
+        ctypes.c_int,                                     # dict prop
+    ]
+    lib.lzt_crc64.restype = ctypes.c_uint64
+    lib.lzt_crc64.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint64]
     lib.lzt_lzma2_group_ops.restype = ctypes.c_int
     lib.lzt_lzma2_group_ops.argtypes = [
         u8p, ctypes.c_size_t, ctypes.c_uint32,
@@ -92,10 +101,14 @@ def _as_u8p(b: bytes):
     return ctypes.cast(ctypes.c_char_p(bytes(b)), ctypes.POINTER(ctypes.c_uint8))
 
 
-def lzma2_encode(data: bytes, dict_size: int, chunk_size: int, lc: int = 3,
-                 lp: int = 0, pb: int = 2) -> tuple[bytes, int]:
-    """Raw LZMA2 stream of ``data`` in dict-reset groups of ``chunk_size``,
-    at effort 9, ending with the end byte; returns (stream, prop)."""
+def lzma2_encode(data: bytes, dict_size: int, chunk_size: int | None,
+                 parallel: bool = True, lc: int = 3, lp: int = 0, pb: int = 2,
+                 effort: int = 9) -> tuple[bytes, int]:
+    """Raw LZMA2 stream of ``data``, ending with the end byte; returns
+    (stream, prop).  ``parallel`` resets the dictionary every
+    ``chunk_size`` bytes (dict-reset groups; None or 0 is the encoder's
+    default); without it only the first chunk resets.  ``effort`` 1-9 is
+    the lazy parse's depth, 10 the optimal parse."""
     lib = _load()
     cap = len(data) + len(data) // 2 + 4096 + 8 * (len(data) // 49152 + 2)
     dst = ctypes.create_string_buffer(cap)
@@ -104,9 +117,37 @@ def lzma2_encode(data: bytes, dict_size: int, chunk_size: int, lc: int = 3,
     r = lib.lzt_lzma2_encode(
         _as_u8p(data), len(data),
         ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)), ctypes.byref(n),
-        dict_size, chunk_size, 1, lc, lp, pb, 9, ctypes.byref(prop))
+        dict_size, chunk_size or 0, 1 if parallel else 0, lc, lp, pb, effort,
+        ctypes.byref(prop))
     raise_for_sres(r)
     return dst.raw[:n.value], prop.value
+
+
+def lzma2_decode(stream: bytes, prop: int,
+                 size_hint: int | None = None) -> bytes:
+    """Decode a raw LZMA2 stream (end byte included) on the host.
+    ``size_hint`` is the expected output size; a buffer that proves too
+    small is grown four times and the decode run again."""
+    lib = _load()
+    cap = size_hint if size_hint is not None else max(1 << 16, len(stream) * 8)
+    src = _as_u8p(stream)
+    while True:
+        dst = ctypes.create_string_buffer(max(cap, 1))
+        n = ctypes.c_size_t(cap)
+        r = lib.lzt_lzma2_decode(
+            src, len(stream), ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.byref(n), prop)
+        if r == 7:      # SZ_ERROR_OUTPUT_EOF: the output did not fit
+            cap = max(cap * 4, 1 << 16)
+            continue
+        raise_for_sres(r)
+        return dst.raw[:n.value]
+
+
+def crc64(data, value: int = 0) -> int:
+    """Rolling CRC64 (ECMA-182, xz's check) of ``data`` from ``value``."""
+    data = bytes(data)
+    return _load().lzt_crc64(_as_u8p(data), len(data), value)
 
 
 def lzma2_group_ops(data: bytes, dict_size: int, *, lc: int = 3, lp: int = 0,

@@ -49,6 +49,11 @@ FLAG_REBASE = 8
 
 launches = 0   # K1 launches on the card; set to 0 to start a count
 
+# The launcher refuses a pack_cap or dic_cap of this many bytes or more
+# (``lzt_group_decode`` in csrc/group_decode.cu); the scheduler decodes
+# larger groups on the host.
+CAP_LIMIT = 1 << 31
+
 # lzt_group_decode(src, pack_cap, pack_ends, unpack_ends, flags, n_chunks,
 #                  active, out, dic_cap, ok, consumed, iterations, bit_calls,
 #                  n_lanes, lc, lp, pb, stream) in csrc/group_decode.cu
@@ -66,6 +71,8 @@ class GroupBatch:
     consumed: torch.Tensor     # int32 [S]
     iterations: torch.Tensor   # int32 [S] packets per lane
     bit_calls: torch.Tensor    # int32 [S] range-coder bit calls per lane
+    # on the card: recorded on the launch stream after the kernel
+    done: torch.cuda.Event | None = None
 
 
 def check_tensors(specs, dev) -> None:
@@ -127,10 +134,11 @@ def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
                   lp: int = 0, pb: int = 2) -> GroupBatch:
     """Enqueue one decode of multi-chunk groups.
 
-    On the card this launches K1 on ``torch.cuda.current_stream()`` and
-    returns without synchronising; on the CPU it decodes now with the plain
-    version.  Tensors: src uint8 [S, pack_cap]; pack_ends, unpack_ends,
-    flags int32 [S, C]; active int32 [S]; all on one device, contiguous.
+    On the card this launches K1 on ``torch.cuda.current_stream()``,
+    records an event after it there (``batch_done``) and returns without
+    synchronising; on the CPU it decodes now with the plain version.
+    Tensors: src uint8 [S, pack_cap]; pack_ends, unpack_ends, flags int32
+    [S, C]; active int32 [S]; all on one device, contiguous.
     """
     global launches
     _check(src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb)
@@ -150,10 +158,20 @@ def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
                 unpack_ends.data_ptr(), flags.data_ptr(), pack_ends.shape[1],
                 active.data_ptr(), out.data_ptr(), dic_cap,
                 *(row.data_ptr() for row in status), n, lc, lp, pb, stream)
-    if rc != 0:
-        raise RuntimeError(f"group_decode kernel launch failed: CUDA error {rc}")
+        if rc != 0:
+            raise RuntimeError(
+                f"group_decode kernel launch failed: CUDA error {rc}")
+        done = torch.cuda.Event()
+        done.record()
     launches += 1
-    return GroupBatch(out, *status)
+    return GroupBatch(out, *status, done=done)
+
+
+def batch_done(handle: GroupBatch) -> bool:
+    """Whether a submitted batch has finished, without waiting: the launch
+    stream has passed the batch's event (always true on the CPU, where
+    ``submit_groups`` decodes at once)."""
+    return handle.done is None or handle.done.query()
 
 
 def launch_geometry(n_lanes: int, dic_cap: int, lc: int = 3, lp: int = 0,

@@ -48,6 +48,12 @@ launches = 0   # K2 launches on the card; set to 0 to start a count
 
 ERR_TABLE, ERR_OP, ERR_OVERFLOW = 1, 2, 3
 
+# The launcher refuses op rows of this many words or more, and body rows of
+# this many bytes or more (``lzt_range_encode`` in csrc/range_encode.cu);
+# the device-coded encoder sends such groups to the host encoder.
+OP_CAP_LIMIT = 1 << 27
+OUT_CAP_LIMIT = 1 << 31
+
 # lzt_range_encode(ops, op_cap, op_ends, n_chunks, active, out, out_cap, tab,
 #                  ok, bytes, err, bits, n_lanes, lc, lp, pb, scratch,
 #                  scratch_stride, marks, stream) in csrc/range_encode.cu
@@ -135,7 +141,7 @@ def _check(ops, op_ends, active, out_cap, lc, lp, pb):
     if op_ends.dim() != 2 or op_ends.shape[0] != n or op_ends.shape[1] < 1:
         raise ValueError(f"op_ends must be [S, C>0], got "
                          f"{tuple(op_ends.shape)}")
-    if not 1 <= out_cap < 1 << 31:
+    if not 1 <= out_cap < OUT_CAP_LIMIT:
         raise ValueError(f"out_cap must be in [1, 2^31), got {out_cap}")
     check_props(lc, lp, pb)
 

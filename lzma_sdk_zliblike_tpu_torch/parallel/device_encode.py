@@ -12,8 +12,10 @@ is byte-identical to ``host_pool.encode_lzma2_mt`` at the same parameters
 
 A group that needs LZMA2 copy chunks (some native body is at least
 ``min(unpack, 65536)`` bytes) is encoded whole by the host encoder, which
-alone writes copy chunks; the choice is made from the parse's body column
-before the launch (``device_encode.host_groups`` counts them).  A lane the
+alone writes copy chunks; so is a group too large for the kernel's launcher
+(``on_card``: an op row of ``range_encode.OP_CAP_LIMIT`` words or a body row
+of ``OUT_CAP_LIMIT`` bytes).  The choice is made from the parse before the
+launch (``device_encode.host_groups`` counts them).  A lane the
 kernel fails, or whose bodies differ from the ones the parse returned, is a
 kernel fault and raises: it is not re-encoded on the host.
 
@@ -58,6 +60,14 @@ def needs_copy_chunks(tab) -> bool:
     unpack = np.diff(tab[:, 1], prepend=0)
     body = np.diff(tab[:, 2], prepend=0)
     return bool((body >= np.minimum(unpack, COPY_LIMIT)).any())
+
+
+def on_card(ops, span) -> bool:
+    """Whether the kernel's launcher takes a lane of a group of ``ops`` op
+    words over ``span`` (start, end) bytes of input."""
+    start, end = span
+    return (R.op_row_words(len(ops)) < R.OP_CAP_LIMIT
+            and R.out_cap_for(end - start) < R.OUT_CAP_LIMIT)
 
 
 def frame_group(bodies, start: int, end: int, sub: int, props_byte: int) -> bytes:
@@ -146,14 +156,15 @@ def encode_lzma2_device_coded(data: bytes, *, dict_size: int = 1 << 20,
     with ThreadPoolExecutor(normalize_threads(threads, len(spans))) as pool:
         with TRACE.timer("device_encode.parse"):
             parsed = list(pool.map(parse_group, spans))
-        host = [gi for gi, p in enumerate(parsed) if needs_copy_chunks(p[1])]
+        host = [gi for gi, p in enumerate(parsed)
+                if needs_copy_chunks(p[1]) or not on_card(p[0], spans[gi])]
         host_parts = pool.map(host_group, [spans[gi] for gi in host])
         TRACE.add("device_encode.host_groups", len(host))
         dev = sorted(set(range(len(spans))) - set(host))
         if dev:
             lanes = encode_lanes(
                 len(dev), max(len(parsed[gi][0]) for gi in dev),
-                R.out_cap_for(max(e - s for s, e in spans)),
+                R.out_cap_for(max(spans[gi][1] - spans[gi][0] for gi in dev)),
                 max(len(parsed[gi][1]) for gi in dev), device=device)
             pending: collections.deque = collections.deque()
             for base in range(0, len(dev), lanes):

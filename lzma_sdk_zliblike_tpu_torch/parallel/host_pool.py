@@ -1,12 +1,12 @@
-"""Host-side block-parallel encoding — the MtCoder equivalent.
+"""Host-side block-parallel encoding and decoding — the MtCoder equivalent.
 
-The counterpart of the JAX package's ``parallel/host_pool.py`` (its encode
-half).  The reference's MtCoder splits input into blocks, compresses them
-on up to 32 threads, and emits results in order via read/write token rings
-(``MtCoder.c:185-224``).  Here: dict-reset groups are encoded concurrently
-on a thread pool (the native engine releases the GIL inside ctypes calls)
-and joined in submission order.  Thread-count normalization mirrors
-``Lzma2EncProps_Normalize`` (``Lzma2Enc.c:176-221``): block threads are
+The counterpart of the JAX package's ``parallel/host_pool.py``.  The
+reference's MtCoder splits input into blocks, compresses them on up to 32
+threads, and emits results in order via read/write token rings
+(``MtCoder.c:185-224``).  Here: dict-reset groups are encoded or decoded
+concurrently on a thread pool (the native engine releases the GIL inside
+ctypes calls) and joined in submission order.  Thread-count normalization
+mirrors ``Lzma2EncProps_Normalize`` (``Lzma2Enc.c:176-221``): block threads are
 capped at 32 and at the number of blocks.  It runs on the port's own native
 runtime (``native.py``) and has no pure-Python fallback.
 """
@@ -26,10 +26,10 @@ def normalize_threads(threads: int | None, n_blocks: int) -> int:
 
 
 def encode_lzma2_mt(data: bytes, *, dict_size: int, chunk_size: int,
-                    threads: int | None = None, lc: int = 3, lp: int = 0,
-                    pb: int = 2, progress=None) -> tuple[bytes, int]:
-    """Parallel LZMA2 encode at effort 9: each dict-reset group is one work
-    item.
+                    threads: int | None = None, effort: int = 9,
+                    lc: int = 3, lp: int = 0, pb: int = 2,
+                    progress=None) -> tuple[bytes, int]:
+    """Parallel LZMA2 encode: each dict-reset group is one work item.
 
     Returns ``(stream, dict_prop)``; output is byte-identical to the
     single-threaded parallel-groups encoder (same groups, same coder), so
@@ -50,7 +50,8 @@ def encode_lzma2_mt(data: bytes, *, dict_size: int, chunk_size: int,
     def encode_block(span):
         start, end = span
         stream, prop = native.lzma2_encode(
-            data[start:end], dict_size, chunk_size, lc=lc, lp=lp, pb=pb)
+            data[start:end], dict_size, chunk_size, lc=lc, lp=lp, pb=pb,
+            effort=effort)
         prop_holder.setdefault("prop", prop)
         return stream[:-1]  # strip the per-call end byte
 
@@ -65,3 +66,61 @@ def encode_lzma2_mt(data: bytes, *, dict_size: int, chunk_size: int,
                 raise ProgressAborted()
     out.append(0)  # end byte
     return bytes(out), prop_holder["prop"]
+
+
+def group_span(stream: bytes, group) -> tuple[int, int, int]:
+    """(start, end, unpack) byte span of a dict-reset group in ``stream``.
+
+    The span starts at the group's first control byte, so the slice is a
+    standalone LZMA2 stream but for the end byte."""
+    from ..models.lzma2 import framing
+
+    def ctrl_off(c):
+        if not c.is_lzma:
+            return c.data_off - 3
+        return c.data_off - 5 - (
+            1 if c.mode >= framing.MODE_STATE_PROPS else 0)
+
+    return (ctrl_off(group[0]),
+            group[-1].data_off + group[-1].pack_size,
+            sum(c.unpack_size for c in group))
+
+
+def decode_group_native(stream: bytes, group, dict_prop: int) -> bytes:
+    """Decode one dict-reset group with the native decoder (host worker)."""
+    from .. import native
+
+    start, end, unpack = group_span(stream, group)
+    return native.lzma2_decode(stream[start:end] + b"\x00", dict_prop,
+                               size_hint=unpack)
+
+
+def decode_lzma2_mt(stream: bytes, dict_prop: int, *,
+                    threads: int | None = None, progress=None) -> bytes:
+    """Parallel LZMA2 decode: dict-reset groups decoded concurrently.
+
+    Each group starts with a dictionary reset, so every worker runs the
+    native decoder on its slice of the stream and the ordered join
+    reassembles the output.  ``progress(in_bytes, out_bytes)`` is called at
+    each group's ordered completion (``ICompressProgress``,
+    ``Types.h:220-225``); returning False cancels the groups not yet
+    started and raises ``ProgressAborted``.
+    """
+    from ..models.lzma2 import framing
+    from ..utils.errors import ProgressAborted
+
+    framing.decode_dict_prop(dict_prop)  # validate
+    groups = framing.split_groups(framing.scan(stream)[0])
+    spans = [group_span(stream, g) for g in groups]
+    out = bytearray()
+    with ThreadPoolExecutor(normalize_threads(threads,
+                                              max(len(spans), 1))) as pool:
+        futures = [pool.submit(decode_group_native, stream, g, dict_prop)
+                   for g in groups]
+        for (_start, end, _u), fut in zip(spans, futures):
+            out += fut.result()   # ordered join (the write token)
+            if progress is not None and progress(end, len(out)) is False:
+                for f in futures:
+                    f.cancel()
+                raise ProgressAborted()
+    return bytes(out)

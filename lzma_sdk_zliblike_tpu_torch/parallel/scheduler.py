@@ -8,11 +8,16 @@ host-side concat keyed by group index.
 
 Eligibility: a group runs on the device when all its LZMA chunks share one
 (lc, lp, pb) with lc + lp <= 4, its copy chunks are well formed, a state
-reset follows every copy chunk, and it fits the batch's shape.  Groups of
-different props go to separate launches.  There is no cap on the number of
-chunks in a group: the kernel's chunk table has none.  Copy-only groups are
-a plain memcpy; anything else is decoded on the host by the scalar reference
-decoder (``scheduler.host_fallback_groups``).
+reset follows every copy chunk, it fits the batch's shape and the kernel's
+launcher takes it (``utils/memory.fits_launcher``: below 2 GiB packed and
+unpacked).  Groups of different props go to separate launches.  There is no
+cap on the number of chunks in a group: the kernel's chunk table has none.
+Copy-only groups are a plain memcpy; anything else is decoded on the host by
+the native decoder (``scheduler.host_fallback_groups``).
+
+``submit_batch`` / ``finalize_batch`` are the per-batch pair of the hybrid
+engine (``parallel/hybrid.py``): one group per lane, each group's bytes back
+or None where its lane failed.
 """
 
 from __future__ import annotations
@@ -27,8 +32,13 @@ import torch
 from ..models.lzma2 import framing
 from ..ops import group_decode as G
 from ..utils.errors import DataError
-from ..utils.memory import INFLIGHT
+from ..utils.memory import INFLIGHT, fits_launcher
 from ..utils.trace import TRACE
+from .host_pool import decode_group_native
+
+# The dict prop of the host fallback: the largest dictionary, so that, as on
+# the card, a match is checked against the group's own output alone.
+_HOST_DICT_PROP = 40
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +77,8 @@ class BatchedLzma2Decoder:
     def _eligible(self, group: list[framing.Chunk]):
         """The (lc, lp, pb) the group decodes with on the card, or None."""
         s = self.shape
-        if _unpacked(group) > s.dic_cap or _packed(group) > s.pack_cap:
+        if _unpacked(group) > s.dic_cap or _packed(group) > s.pack_cap \
+                or not fits_launcher(group):
             return None
         props = None
         need_reset = True   # fresh kernel probs need a reset chunk
@@ -108,16 +119,18 @@ class BatchedLzma2Decoder:
                 by_props.setdefault(props, []).append(gi)
             else:
                 TRACE.add("scheduler.host_fallback_groups")
-                results[gi] = framing.decode_chunks(stream, g)
+                results[gi] = decode_group_native(stream, g, _HOST_DICT_PROP)
         for props, idx in by_props.items():
             self._decode_on_device(stream, groups, idx, results, props,
                                    self._multi_k(len(idx)))
         return results  # type: ignore[return-value]
 
     def _multi_k(self, n_groups: int) -> int:
-        """Groups per lane: 1 while every group has a lane of its own."""
+        """Groups per lane: 1 while every group has a lane of its own, and
+        never so many that a lane's row reaches the launcher's limit."""
         s = self.shape
-        return max(1, min(s.groups_per_lane, -(-n_groups // s.n_lanes)))
+        return max(1, min(s.groups_per_lane, -(-n_groups // s.n_lanes),
+                          (G.CAP_LIMIT - 1) // max(s.pack_cap, s.dic_cap)))
 
     def _decode_on_device(self, stream, groups, idx, results, props, k: int):
         """Decode groups ``idx`` of one (lc, lp, pb) in batches of lanes of
@@ -222,23 +235,51 @@ class BatchedLzma2Decoder:
         The reference's MtCoder poisons the whole ring on any thread error
         (``MtCoder.c:226-247``); here a bad group fails by itself,
         identified by its group index, and the other lanes are kept."""
-        out, ok, _consumed = G.finalize_chunks(
-            handle, dic_cap=k * self.shape.dic_cap)
-        out, ok = out.numpy(), ok.tolist()
         again: list[int] = []
-        for li, lane in enumerate(lanes):
-            if not ok[li]:
-                TRACE.add("scheduler.lane_retries")
+        outs = self._outputs(handle, [[groups[gi] for gi in lane]
+                                      for lane in lanes], k)
+        for lane, parts in zip(lanes, outs):
+            if parts is None:
                 if len(lane) > 1:
                     again += lane
                     continue
                 self._raise_failed(stream, groups[lane[0]], lane[0])
-            off = 0
-            for gi in lane:
-                u = _unpacked(groups[gi])
-                results[gi] = out[li, off:off + u].tobytes()
-                off += u
+            for gi, part in zip(lane, parts):
+                results[gi] = part
         return again
+
+    def _outputs(self, handle: G.GroupBatch, lane_groups, k: int):
+        """Per lane of a batch, its groups' bytes in order, or None where
+        the lane failed (``scheduler.lane_retries``)."""
+        out, ok, _consumed = G.finalize_chunks(
+            handle, dic_cap=k * self.shape.dic_cap)
+        out, ok = out.numpy(), ok.tolist()
+        res = []
+        for li, lg in enumerate(lane_groups):
+            if not ok[li]:
+                TRACE.add("scheduler.lane_retries")
+                res.append(None)
+                continue
+            ends = np.cumsum([0] + [_unpacked(g) for g in lg])
+            res.append([out[li, a:b].tobytes()
+                        for a, b in zip(ends[:-1], ends[1:])])
+        return res
+
+    # -- the hybrid engine's per-batch pair ---------------------------------
+    def submit_batch(self, stream: bytes, groups: list[list[framing.Chunk]],
+                     props) -> G.GroupBatch:
+        """Launch one batch of ``groups`` of one (lc, lp, pb), one group per
+        lane (each within the shape, ``_eligible``), without waiting."""
+        return self._submit(*self._assemble(stream, [[g] for g in groups], 1),
+                            dic_cap=self.shape.dic_cap, props=props)
+
+    def finalize_batch(self, handle: G.GroupBatch,
+                       groups: list[list[framing.Chunk]]
+                       ) -> list[bytes | None]:
+        """Each group's bytes of a ``submit_batch`` batch, in order; None
+        where its lane failed (``_raise_failed`` names the fault)."""
+        return [None if parts is None else parts[0]
+                for parts in self._outputs(handle, [[g] for g in groups], 1)]
 
     @staticmethod
     def _raise_failed(stream: bytes, group: list[framing.Chunk], gi: int):

@@ -24,6 +24,12 @@ class DataError(LzmaError):
     sres = 1
 
 
+class CrcError(LzmaError):
+    """Integrity-check mismatch (SZ_ERROR_CRC = 3)."""
+
+    sres = 3
+
+
 class UnsupportedError(LzmaError):
     """Unsupported method, option or device (SZ_ERROR_UNSUPPORTED = 4)."""
 
@@ -54,9 +60,16 @@ class ProgressAborted(LzmaError):
     sres = 10
 
 
-_SRES_MAP = {cls.sres: cls for cls in (DataError, UnsupportedError, ParamError,
-                                       InputEofError, OutputEofError,
-                                       ProgressAborted)}
+class ArchiveError(LzmaError):
+    """Malformed archive metadata (SZ_ERROR_ARCHIVE = 16)."""
+
+    sres = 16
+
+
+_SRES_MAP = {cls.sres: cls for cls in (DataError, CrcError, UnsupportedError,
+                                       ParamError, InputEofError,
+                                       OutputEofError, ProgressAborted,
+                                       ArchiveError)}
 
 
 def raise_for_sres(code: int, msg: str = "") -> None:

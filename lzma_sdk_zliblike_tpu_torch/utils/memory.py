@@ -58,20 +58,33 @@ def pick_lanes(pack_cap: int, dic_cap: int, *, hbm_budget: int) -> int:
     return max(1, hbm_budget // decode_batch_hbm_bytes(1, pack_cap, dic_cap))
 
 
+def _round4k(n: int) -> int:
+    return -(-n // 4096) * 4096
+
+
+def fits_launcher(group) -> bool:
+    """Whether K1's launcher takes a lane of this one group: its packed and
+    unpacked sizes, 4 KiB-rounded as the batch shape rounds them, stay below
+    ``ops/group_decode.CAP_LIMIT``.  Larger groups decode on the host."""
+    from ..ops.group_decode import CAP_LIMIT
+    return (_round4k(sum(c.pack_size for c in group)) < CAP_LIMIT
+            and _round4k(sum(c.unpack_size for c in group)) < CAP_LIMIT)
+
+
 def shape_for_groups(groups, *, device="cuda", hbm_budget: int | None = None):
     """A BatchShape sized to the stream's groups under the device budget.
 
-    dic_cap/pack_cap cover the largest group (4 KiB-rounded); the lane count
-    is the number of groups that hold an LZMA chunk, capped by the budget,
-    with one group per lane."""
+    dic_cap/pack_cap cover the largest group the launcher takes
+    (``fits_launcher``; 4 KiB-rounded): a group that must go to the host
+    does not size every lane.  The lane count is the number of those groups
+    that hold an LZMA chunk, capped by the budget, with one group per lane."""
     from ..parallel.scheduler import BatchShape
 
-    dic_cap = max((sum(c.unpack_size for c in g) for g in groups),
-                  default=1 << 16)
-    dic_cap = -(-dic_cap // 4096) * 4096
-    pack_cap = max((sum(c.pack_size for c in g) for g in groups),
-                   default=1 << 16)
-    pack_cap = -(-pack_cap // 4096) * 4096
+    groups = [g for g in groups if fits_launcher(g)]
+    dic_cap = _round4k(max((sum(c.unpack_size for c in g) for g in groups),
+                           default=1 << 16))
+    pack_cap = _round4k(max((sum(c.pack_size for c in g) for g in groups),
+                            default=1 << 16))
     n_lzma = sum(1 for g in groups if any(c.is_lzma for c in g))
     if hbm_budget is None:
         hbm_budget = device_budget(device)

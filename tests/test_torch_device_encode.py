@@ -13,6 +13,7 @@ import importlib.util
 import lzma
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -104,6 +105,51 @@ def test_random_groups_go_to_the_host():
     assert snap["device_encode.batches"] == 1
     assert stream == jax_encode_mt(data, dict_size=1 << 16,
                                    chunk_size=1 << 11)[0]
+    assert _raw_decode(stream, 1 << 16) == data
+
+
+@pytest.mark.parametrize("limit", ["op", "out"])
+def test_over_limit_group_encodes_on_host(monkeypatch, limit):
+    """A group the K2 launcher would refuse (its padded op row or its body
+    row at a limit lowered here) is encoded whole by the host encoder and
+    counted in ``host_groups``; no launch sees a row at the limit, and the
+    stream stays byte-identical to the host MT encoders'."""
+    rep = _CORPUS.repetitive
+    data = rep(2048, seed=30) + big_mixed(2048, seed=31) \
+        + rep(2048, seed=32) + big_mixed(600, seed=33)
+    spans = [(a, min(a + 2048, len(data))) for a in range(0, len(data), 2048)]
+    words = [len(P.native.lzma2_group_ops(data[a:b], 1 << 16,
+                                          sub_size=2048)[0])
+             for a, b in spans]
+    if limit == "op":
+        cap = R.op_row_words(words[1])
+        assert max(R.op_row_words(w) for w in words[:1] + words[2:]) < cap
+        monkeypatch.setattr(R, "OP_CAP_LIMIT", cap)
+        host = [1]
+    else:
+        cap = R.out_cap_for(2048)
+        monkeypatch.setattr(R, "OUT_CAP_LIMIT", cap)
+        host = [0, 1, 2]
+    assert [not DE.on_card(np.zeros(w), s) for w, s in zip(words, spans)] \
+        == [i in host for i in range(4)]
+    rows = []
+    submit = R.submit_encode_groups
+
+    def checking_submit(ops, *args, out_cap, **kw):
+        rows.append((ops.shape[1], out_cap))
+        return submit(ops, *args, out_cap=out_cap, **kw)
+    monkeypatch.setattr(R, "submit_encode_groups", checking_submit)
+    TRACE.reset()
+    stream, _ = P.encode_lzma2_device_coded(
+        data, dict_size=1 << 16, chunk_size=2048, device="cpu")
+    snap = TRACE.snapshot()
+    assert snap["device_encode.host_groups"] == len(host)
+    assert snap["device_encode.lanes"] == 4 - len(host)
+    assert rows and all((o < R.OP_CAP_LIMIT and c < R.OUT_CAP_LIMIT)
+                        for o, c in rows)
+    assert stream == jax_encode_mt(data, dict_size=1 << 16,
+                                   chunk_size=2048)[0] == \
+        encode_lzma2_mt(data, dict_size=1 << 16, chunk_size=2048)[0]
     assert _raw_decode(stream, 1 << 16) == data
 
 

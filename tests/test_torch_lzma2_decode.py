@@ -12,6 +12,7 @@ import ast
 import importlib.util
 import lzma
 import os
+import re
 import subprocess
 import sys
 
@@ -209,11 +210,90 @@ def test_no_card_raises(streams, monkeypatch):
         P.lzma2_uncompress(stream, prop)
 
 
-def test_progress_is_unsupported(streams):
-    stream, prop, _ = streams["liblzma"]
-    with pytest.raises(P.UnsupportedError):
+def test_progress_routes_to_host_mt(streams, monkeypatch):
+    """With the device engine a progress callback sends the call to the
+    host MT decoder, as the JAX package routes it: no K1 batch runs, the
+    callback sees every group in order, and False aborts."""
+    from lzma_sdk_zliblike_tpu_torch.parallel import host_pool
+    stream, prop, data = streams["liblzma"]
+    calls = []
+    real = host_pool.decode_lzma2_mt
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+    monkeypatch.setattr(host_pool, "decode_lzma2_mt", spy)
+    seen = []
+    TRACE.reset()
+    assert P.lzma2_uncompress(stream, prop, device="cpu", threads=2,
+                              progress=lambda i, o: seen.append(o)) == data
+    assert len(calls) == 1 and calls[0]["threads"] == 2
+    assert seen == sorted(seen) and seen[-1] == len(data) and len(seen) == 3
+    assert "scheduler.pallas_batches" not in TRACE.snapshot()
+    with pytest.raises(P.ProgressAborted):
         P.lzma2_uncompress(stream, prop, device="cpu",
-                           progress=lambda i, o: True)
+                           progress=lambda i, o: False)
+
+
+def _launcher_limit(source: str, function: str, arg: str) -> int:
+    """The bound ``arg >= (1ll << N)`` that ``function`` in ``source``
+    refuses, as 2**N."""
+    with open(os.path.join(PORT, "csrc", source)) as f:
+        text = f.read()
+    body = text[text.index(f"int {function}("):]
+    return 1 << int(re.search(rf"{arg} >= \(1ll << (\d+)\)", body).group(1))
+
+
+def test_launcher_limits_match_the_sources():
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    assert G.CAP_LIMIT == _launcher_limit(
+        "group_decode.cu", "lzt_group_decode", "pack_cap") == \
+        _launcher_limit("group_decode.cu", "lzt_group_decode", "dic_cap")
+    assert R.OP_CAP_LIMIT == _launcher_limit(
+        "range_encode.cu", "lzt_range_encode", "op_cap")
+    assert R.OUT_CAP_LIMIT == _launcher_limit(
+        "range_encode.cu", "lzt_range_encode", "out_cap")
+
+
+def test_over_limit_group_decodes_on_host(monkeypatch):
+    """A group the K1 launcher would refuse (here under a limit lowered to
+    8 KiB) decodes on the host with the native decoder and is counted;
+    the batch shape is sized from the other groups, and no launch sees a
+    row at the limit.  The output equals the JAX package's."""
+    from lzma_sdk_zliblike_tpu_torch.parallel import scheduler
+    parts = [big_mixed(n, seed=80 + i)
+             for i, n in enumerate((3000, 12000, 2500, 4000))]
+    stream, prop = _stdlib_stream(parts)
+    groups = F.split_groups(F.scan(stream)[0])
+    assert M.shape_for_groups(groups, device="cpu").dic_cap == 12288
+    monkeypatch.setattr(G, "CAP_LIMIT", 8192)
+    assert [M.fits_launcher(g) for g in groups] == [True, False, True, True]
+    shape = M.shape_for_groups(groups, device="cpu")
+    assert (shape.dic_cap, shape.n_lanes) == (4096, 3)
+    assert shape.pack_cap == 4096
+    rows, host = [], []
+    submit, native_decode = G.submit_groups, scheduler.decode_group_native
+
+    def checking_submit(src, *args, dic_cap, **kw):
+        rows.append((src.shape[1], dic_cap))
+        return submit(src, *args, dic_cap=dic_cap, **kw)
+
+    def spy(stream_, group, prop_):
+        host.append(sum(c.unpack_size for c in group))
+        return native_decode(stream_, group, prop_)
+    monkeypatch.setattr(G, "submit_groups", checking_submit)
+    monkeypatch.setattr(scheduler, "decode_group_native", spy)
+    TRACE.reset()
+    assert P.lzma2_uncompress(stream, prop, device="cpu") == \
+        b"".join(parts) == jlzt.lzma2_uncompress(stream, prop)
+    assert TRACE.snapshot()["scheduler.host_fallback_groups"] == 1
+    assert host == [12000]
+    assert rows and all(max(r) < 8192 for r in rows)
+    # a shape that allows several groups a lane keeps each row below it
+    dec = scheduler.BatchedLzma2Decoder(
+        scheduler.BatchShape(n_lanes=1, pack_cap=4096, dic_cap=4096,
+                             groups_per_lane=4), device="cpu")
+    assert dec._multi_k(3) == 1
 
 
 def test_batch_budget(streams, monkeypatch):
