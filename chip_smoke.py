@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port's LZMA2 decode and encode paths, its host
-and hybrid decode engines, its xz container and its bit-call probes on one
-NVIDIA GPU.
+and hybrid decode and encode engines, its xz container, its match finder and
+its bit-call probes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -83,6 +83,29 @@ Phases, each printed as one JSON line:
    256 KiB): equal to the data, K1 launched, no group on the host.  Two
    steps of the first read are also timed alone: its LZMA2 payload through
    ``lzma2_uncompress`` and the CRC64 of the output.
+10. hybrid encode: ``encode_lzma2_hybrid(device="cuda")`` of phase 3's data
+   at ``encode_main``'s shape (1 MiB dictionary and chunk), at every core
+   (``hybrid_encode``) and at one host thread (``hybrid_encode_1t``, where
+   the card must code groups).  The stream must equal ``encode_lzma2_mt``'s
+   and decode to the original with Python's ``lzma`` and with K1; MB/s
+   beside ``encode_main``'s and the host MT encoder's, the
+   ``hybrid_encode.*`` counters, K2's busy time and the card's idle share.
+11. encode big block: ``encode_lzma2_device_coded`` of the first 64 MiB as
+   one group with a 16 MiB dictionary, K2 on one lane, no group on the
+   host.  The host encoder refuses groups over 2 MiB, so the stream is held
+   against the host parse's native bodies framed as the host encoder frames
+   them, and decoded with Python's ``lzma``; K2's time with its walk, code
+   and gather split, its ops and bit calls.
+12. X2 vs CPU: the match finder (``ops/match_find.py``, torch ops) on the
+   card against the same function on the CPU, 4 lanes of 64 KiB (one short)
+   and 1 lane of 2^17, at 24 + 12 and 3 + 2 candidates: every output
+   identical (tolerance 0); then X2 alone at the encoder's batch (32 lanes
+   of 64 KiB), timed by CUDA events, with its bytes bound.
+13. device-assisted encode: ``encode_lzma2_device(device="cuda")`` of phase
+   3's data at its defaults (64 KiB chunks, batches of 32 lanes): the stream
+   must decode to the original with Python's ``lzma`` and with K1, and its
+   first 4 MiB must give the same stream through X2 on the CPU; its size is
+   set beside ``encode_lzma2_mt``'s at the same dictionary and chunk.
 
 Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
 one compression per group, so the original bytes are the ground truth.
@@ -632,10 +655,10 @@ def encode_many_lanes(pool, device, data: bytes) -> dict:
     return res
 
 
-def encode_main(data: bytes, device) -> dict:
+def encode_main(data: bytes, device) -> tuple[dict, bytes]:
     """The encode path once, with the counters set to 0 just before; its
     step breakdown, kernel time and bound come from that run's trace, then
-    its checks."""
+    its checks.  Also returns the host MT encoder's stream of ``data``."""
     import torch
     from lzma_sdk_zliblike_tpu_torch import (encode_lzma2_device_coded,
                                              lzma2_uncompress)
@@ -683,6 +706,7 @@ def encode_main(data: bytes, device) -> dict:
     t = time.perf_counter()
     ref, ref_prop = encode_lzma2_mt(data, dict_size=MIB, chunk_size=MIB)
     res["host_mt_seconds"] = time.perf_counter() - t
+    res["host_mt_mb_per_s"] = len(data) / res["host_mt_seconds"] / 1e6
     res["equal_host_mt"] = stream == ref and prop == ref_prop
     res["lzma_module_roundtrip"] = lzma.decompress(
         stream, format=lzma.FORMAT_RAW,
@@ -693,7 +717,7 @@ def encode_main(data: bytes, device) -> dict:
                    and res["bit_calls_max"] == res["host_bit_calls_max"]
                    and res["device_lanes"] + res["host_groups"] == groups
                    and res["device_lanes"] > 0 and res["kernel_ms"] > 0)
-    return res
+    return res, ref
 
 
 def encode_counts(data: bytes, stream: bytes) -> dict:
@@ -1026,6 +1050,240 @@ def xz_run(img: bytes, data: bytes, device) -> dict:
     return res
 
 
+def encode_run(fn, data: bytes, **kw) -> tuple[dict, bytes, int, dict]:
+    """One encode call with the K2 count and the trace set to 0 just before:
+    its wall time (host clock, with a synchronise), K2's launches and busy
+    time (the CUDA events ``finalize_encode`` adds up) and the card's idle
+    share (the rest of the wall time).  Returns (result, stream, prop,
+    trace)."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    from lzma_sdk_zliblike_tpu_torch.utils.trace import TRACE
+    R.launches = 0
+    TRACE.reset()
+    t = time.perf_counter()
+    stream, prop = fn(data, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    snap = TRACE.snapshot()
+    busy = snap.get("range_encode.kernel_ms", 0.0)
+    return ({"bytes": len(data), "packed": len(stream), "seconds": sec,
+             "mb_per_s": len(data) / sec / 1e6, "launches": R.launches,
+             "kernel_busy_ms": busy,
+             "device_idle_share": 1 - busy / (sec * 1e3)},
+            stream, prop, snap)
+
+
+def roundtrips(stream: bytes, prop: int, data: bytes, dict_size: int,
+               device, k1: bool = True) -> dict:
+    """Python's ``lzma`` (and, with ``k1``, the port's K1) decode ``stream``
+    back to ``data``."""
+    from lzma_sdk_zliblike_tpu_torch import lzma2_uncompress
+    res = {"lzma_module_roundtrip": lzma.decompress(
+        stream, format=lzma.FORMAT_RAW,
+        filters=[{"id": lzma.FILTER_LZMA2, "dict_size": dict_size}]) == data}
+    if k1:
+        res["k1_roundtrip"] = lzma2_uncompress(stream, prop,
+                                               device=device) == data
+    return res
+
+
+def hybrid_encode(data: bytes, ref: bytes, device, encode_mb_s: float,
+                  host_mt_mb_s: float) -> list:
+    """Phase 10: ``encode_lzma2_hybrid`` of the main data at
+    ``encode_main``'s shape, at every core and at one host thread.  The
+    stream must equal the host MT encoder's (``ref``) and decode to the
+    original; at one thread the card must code groups."""
+    from lzma_sdk_zliblike_tpu_torch import encode_lzma2_hybrid
+    out = []
+    for threads in (None, 1):
+        res, stream, prop, snap = encode_run(
+            encode_lzma2_hybrid, data, dict_size=MIB, chunk_size=MIB,
+            threads=threads, device=device)
+        res.update(threads=threads or os.cpu_count(),
+                   encode_main_mb_per_s=encode_mb_s,
+                   host_mt_mb_per_s=host_mt_mb_s,
+                   hybrid_encode={k.split(".", 1)[1]: v
+                                  for k, v in snap.items()
+                                  if k.startswith("hybrid_encode.")},
+                   equal_host_mt=stream == ref,
+                   **roundtrips(stream, prop, data, MIB, device))
+        res["pass"] = (res["equal_host_mt"] and res["lzma_module_roundtrip"]
+                       and res["k1_roundtrip"])
+        if threads == 1:
+            res["pass"] = (res["pass"] and res["launches"] > 0
+                           and res["hybrid_encode"].get("dev_groups", 0) > 0)
+        out.append(res)
+    return out
+
+
+def encode_bigblock(data: bytes, device) -> dict:
+    """Phase 11: ``encode_lzma2_device_coded`` of 64 MiB as one group with
+    a 16 MiB dictionary, the encode twin of ``bigblock``.  The host encoder
+    refuses groups over 2 MiB (``lzma2_encode_impl``), so the reference
+    stream is the host parse's native bodies of the group, framed as the
+    host encoder frames them; no group may go to the host."""
+    from lzma_sdk_zliblike_tpu_torch import encode_lzma2_device_coded, native
+    from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
+    from lzma_sdk_zliblike_tpu_torch.parallel import device_encode as DE
+    from lzma_sdk_zliblike_tpu_torch.parallel.host_pool import encode_lzma2_mt
+    from lzma_sdk_zliblike_tpu_torch.utils.errors import ParamError
+    big, dsz = data[:64 * MIB], 16 * MIB
+    res, stream, prop, snap = encode_run(
+        encode_lzma2_device_coded, big, dict_size=dsz, chunk_size=len(big),
+        device=device)
+    res.update({
+        "host_groups": snap.get("device_encode.host_groups", 0),
+        "device_lanes": snap.get("device_encode.lanes", 0),
+        "kernel_ms": snap.get("range_encode.kernel_ms", 0.0),
+        "launch_ms": {step: snap.get(f"range_encode.{step}_ms", 0.0)
+                      for step in R.STEPS},
+        "ops": snap.get("device_encode.ops_per_lane_max", 0),
+        "bit_calls": snap.get("range_encode.bit_calls_max", 0),
+        "parse_ms": snap.get("device_encode.parse", {}).get("total_s", 0)
+        * 1e3,
+        "kernel_bytes": (snap.get("device_encode.kernel_bytes_read", 0)
+                         + snap.get("range_encode.bytes_written", 0))})
+    res["bound_ms"] = res["kernel_bytes"] / HBM_BYTES_PER_S * 1e3
+    t = time.perf_counter()
+    ops, tab, body = native.lzma2_group_ops(
+        big, DE.real_dict_size(DE.encode_dict_prop(dsz)),
+        sub_size=DE.SUB_CHUNK)
+    ends = [0] + tab[:, 2].tolist()
+    props_byte = (2 * 5 + 0) * 9 + 3        # (pb * 5 + lp) * 9 + lc
+    ref = DE.frame_group([body[a:b] for a, b in zip(ends, ends[1:])], 0,
+                         len(big), DE.SUB_CHUNK, props_byte) + b"\x00"
+    res["reference_seconds"] = time.perf_counter() - t
+    calls = np.concatenate([[0], np.cumsum(R.op_bit_calls(ops))])
+    res.update(chunks=len(tab), host_bit_calls=int(calls[-1]),
+               chunk_bit_calls_max=int(np.diff(
+                   calls[np.concatenate([[0], tab[:, 0] // 2])]).max()),
+               needs_copy_chunks=DE.needs_copy_chunks(tab),
+               equal_native_framing=stream == ref,
+               **roundtrips(stream, prop, big, dsz, device, k1=False))
+    try:
+        encode_lzma2_mt(big, dict_size=dsz, chunk_size=len(big))
+        res["host_mt_refuses"] = None
+    except ParamError as e:
+        res["host_mt_refuses"] = f"ParamError: {e}"
+    res["pass"] = (res["equal_native_framing"]
+                   and res["lzma_module_roundtrip"] and res["launches"] > 0
+                   and res["host_groups"] == 0 and res["device_lanes"] == 1
+                   and res["bit_calls"] == res["host_bit_calls"])
+    return res
+
+
+def x2_bytes(lanes: int, L: int, n_cand: int, n_cand8: int) -> int:
+    """Bytes X2's sorts must move for ``lanes`` x ``L`` positions: in each
+    pass the key and the 4 payload words are read and written by the sort,
+    then the position, best length, best distance and the pass's candidate
+    distances by the sort back (int32 each)."""
+    return lanes * L * 4 * 2 * ((5 + 3 + n_cand) + (5 + 3 + n_cand8))
+
+
+def match_find_vs_cpu(data: bytes, device) -> dict:
+    """Phase 12: X2 on the card against the same function on the CPU, for 4
+    lanes of 64 KiB cut from the data (one with valid < L) and 1 lane of
+    2^17, at the encoder's 24 + 12 candidates and the default 3 + 2: every
+    output array identical (tolerance 0).  Then X2 alone on the card at the
+    encoder's batch (32 lanes of 64 KiB), timed by CUDA events."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import match_find as X2
+    L = 64 << 10
+    quad = np.stack([np.frombuffer(data[a:a + L], np.uint8)
+                     for a in (0, 5 * MIB, 37 * MIB + 123, 90 * MIB)])
+    one = np.frombuffer(data[70 * MIB:70 * MIB + (1 << 17)], np.uint8)[None]
+    cases = []
+    for name, rows, valid in (
+            ("4x64KiB", quad, np.array([L, L, L - 12345, L], np.int32)),
+            ("1x128KiB", one, np.array([1 << 17], np.int32))):
+        for n_cand, n_cand8 in ((24, 12), (3, 2)):
+            t = time.perf_counter()
+            card = X2.find_matches(rows, valid, n_cand=n_cand,
+                                   n_cand8=n_cand8, device=device)
+            card_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            cpu = X2.find_matches(rows, valid, n_cand=n_cand,
+                                  n_cand8=n_cand8, device="cpu")
+            cpu_ms = (time.perf_counter() - t) * 1e3
+            arrays = list(zip(card[:2] + card[2], cpu[:2] + cpu[2]))
+            cases.append({
+                "case": name, "candidates": [n_cand, n_cand8],
+                "identical": all(np.array_equal(a, b) for a, b in arrays),
+                "max_abs_err": max(int(np.abs(a.astype(np.int64) - b).max())
+                                   for a, b in arrays),
+                "card_ms_with_copies": card_ms, "cpu_ms": cpu_ms})
+    lanes = 32
+    rows = torch.from_numpy(np.frombuffer(data[:lanes * L], np.uint8)
+                            .reshape(lanes, L).copy()).to(device)
+    valid = torch.full((lanes,), L, dtype=torch.int32, device=device)
+
+    def batch():
+        return X2.find_matches_tensor(
+            rows, valid, n_cand=24, n_cand8=12,
+            hash_bits=X2.default_hash_bits(L))[2].permute(0, 2, 1).contiguous()
+    batch()
+    torch.cuda.synchronize()
+    reps = 5
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.reset_peak_memory_stats(device)
+    t0.record()
+    for _ in range(reps):
+        batch()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    res = {"cases": cases, "batch_lanes": lanes, "batch_L": L,
+           "batch_ms": ms, "ms_per_mib": ms / (lanes * L / MIB),
+           "batch_peak_bytes": torch.cuda.max_memory_allocated(device),
+           "bound_ms": x2_bytes(lanes, L, 24, 12) / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": max(c["max_abs_err"] for c in cases)}
+    res["pass"] = all(c["identical"] for c in cases)
+    return res
+
+
+def encode_device(data: bytes, device) -> dict:
+    """Phase 13: ``encode_lzma2_device`` of the main data at its defaults
+    (64 KiB chunks and dictionary, batches of 32 lanes): the stream must
+    decode to the original with Python's ``lzma`` and with K1, and its
+    first 4 MiB must give the same stream through X2 on the CPU.  Its size
+    is set beside the host MT encoder's at the same dictionary and chunk."""
+    from lzma_sdk_zliblike_tpu_torch import encode_lzma2_device
+    from lzma_sdk_zliblike_tpu_torch.parallel.host_pool import encode_lzma2_mt
+    res, stream, prop, snap = encode_run(encode_lzma2_device, data,
+                                         device=device)
+
+    def total_ms(name):
+        return snap.get(name, {}).get("total_s", 0.0) * 1e3
+    res.update({
+        "x2_batches": snap.get("device_encode.x2_batches", 0),
+        "match_find_ms": total_ms("device_encode.match_find"),
+        "x2_device_to_host_ms": total_ms("device_encode.x2_device_to_host"),
+        "wait_for_host_coder_ms": total_ms(
+            "device_encode.wait_for_host_coder"),
+        "encode_ext_thread_ms": total_ms("device_encode.encode_ext"),
+        "encode_ext_groups": snap.get("device_encode.encode_ext",
+                                      {}).get("count", 0),
+        "host_threads": os.cpu_count(),
+        **roundtrips(stream, prop, data, 1 << 16, device)})
+    res["device_idle_share"] = 1 - res["match_find_ms"] / (
+        res["seconds"] * 1e3)
+    head = data[:4 * MIB]
+    t = time.perf_counter()
+    res["first_4mib_cpu_equal"] = (
+        encode_lzma2_device(head, device="cpu")
+        == encode_lzma2_device(head, device=device))
+    res["first_4mib_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    host, _ = encode_lzma2_mt(data, dict_size=1 << 16, chunk_size=1 << 16)
+    res["host_mt_64k_seconds"] = time.perf_counter() - t
+    res["host_mt_64k_packed"] = len(host)
+    res["size_vs_host_mt"] = len(stream) / len(host)
+    res["pass"] = (res["lzma_module_roundtrip"] and res["k1_roundtrip"]
+                   and res["first_4mib_cpu_equal"] and res["x2_batches"] > 0)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1119,7 +1377,7 @@ def main() -> int:
         failed.append("encode_kernel_vs_plain")
 
     # -- 6. encode main: 128 MiB in 1 MiB groups ------------------------------
-    p6 = encode_main(data, device)
+    p6, ref_mt = encode_main(data, device)
     emit({"phase": "encode_main", **p6})
     if not p6["pass"]:
         failed.append("encode_main")
@@ -1143,6 +1401,33 @@ def main() -> int:
     emit({"phase": "xz", **p9})
     if not p9["pass"]:
         failed.append("xz")
+
+    # -- 10. hybrid encode: host cores and K2 on one group queue ------------
+    ph10 = hybrid_encode(data, ref_mt, device, p6["mb_per_s"],
+                         p6["host_mt_mb_per_s"])
+    for name, res in zip(("hybrid_encode", "hybrid_encode_1t"), ph10):
+        emit({"phase": name, **res})
+        if not res["pass"]:
+            failed.append(name)
+    del ref_mt
+
+    # -- 11. encode big block: one 64 MiB group through K2 --------------------
+    p11 = encode_bigblock(data, device)
+    emit({"phase": "encode_bigblock", **p11})
+    if not p11["pass"]:
+        failed.append("encode_bigblock")
+
+    # -- 12. X2 on the card against the CPU ------------------------------------
+    p12 = match_find_vs_cpu(data, device)
+    emit({"phase": "match_find_vs_cpu", **p12})
+    if not p12["pass"]:
+        failed.append("match_find_vs_cpu")
+
+    # -- 13. device-assisted encode: X2 on the card, the host coder ----------
+    p13 = encode_device(data, device)
+    emit({"phase": "encode_device", **p13})
+    if not p13["pass"]:
+        failed.append("encode_device")
 
     # K1's chain bound: the longest lane's bit calls on main at the cost of
     # one dependent pure-ALU bit call that phase 7 measured
@@ -1193,7 +1478,12 @@ def main() -> int:
         "launch_ms": p6["launch_ms"],
         "many_lanes_ms": p5["many_lanes"]["kernel_ms"],
         "many_lanes_per_sm": p5["many_lanes"]["lanes_per_sm"],
-        "main_shape_plain_ms": p5["main_shape"]["plain_ms"]}, {
+        "main_shape_plain_ms": p5["main_shape"]["plain_ms"],
+        "hybrid_encode_launches": ph10[0]["launches"],
+        "hybrid_encode_1t_launches": ph10[1]["launches"],
+        "encode_bigblock_launches": p11["launches"],
+        "encode_bigblock_ms": p11["kernel_ms"],
+        "encode_bigblock_bound_ms": p11["bound_ms"]}, {
         "name": "v12_probe (P1)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/v12_probe.cu",
         "replaces": "tools/dev_v12_probe.py:41", **k_p1,

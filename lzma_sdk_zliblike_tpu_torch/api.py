@@ -21,7 +21,7 @@ def check_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise UnsupportedError("no CUDA device; pass device='cpu' to run the "
-                               "plain decoder on the CPU")
+                               "kernels' plain versions on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise UnsupportedError(f"unsupported device {device}")
     return device

@@ -3,14 +3,15 @@
 The counterpart of the JAX package's ``native.py``, for the calls the port
 needs: ``lzt_lzma2_group_ops`` (the fast parse of one dict-reset group,
 exporting op records for the range-encode kernel), ``lzt_lzma2_encode`` and
-``lzt_lzma2_decode`` (the host LZMA2 encoder and decoder) and ``lzt_crc64``
-(the xz container's CRC64).  The source is
-``csrc/host/lzt_codec.cc``, one self-contained translation unit.  At first
-use it is built with g++ into ``build/torch_host/liblzt_host_<hash>.so``
-(the hash covers the source and the flags, so an edited source is rebuilt),
-written under a temporary name and renamed, so that concurrent test workers
-never load a half-written library.  There is no fallback: a missing g++ or
-a failed build raises.
+``lzt_lzma2_decode`` (the host LZMA2 encoder and decoder),
+``lzt_lzma2_encode_ext`` (the host encoder drawing its match candidates from
+the device match finder X2) and ``lzt_crc64`` (the xz container's CRC64).
+The source is ``csrc/host/lzt_codec.cc``, one self-contained translation
+unit.  At first use it is built with g++ into
+``build/torch_host/liblzt_host_<hash>.so`` (the hash covers the source and
+the flags, so an edited source is rebuilt), written under a temporary name
+and renamed, so that concurrent test workers never load a half-written
+library.  There is no fallback: a missing g++ or a failed build raises.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import threading
 
 import numpy as np
 
-from .utils.errors import raise_for_sres
+from .utils.errors import ParamError, raise_for_sres
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "host", "lzt_codec.cc")
@@ -80,6 +81,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,         # lc lp pb
         ctypes.c_int, ctypes.POINTER(ctypes.c_int),       # effort, prop_out
     ]
+    lib.lzt_lzma2_encode_ext.restype = ctypes.c_int
+    lib.lzt_lzma2_encode_ext.argtypes = (
+        lib.lzt_lzma2_encode.argtypes
+        + [ctypes.POINTER(ctypes.c_int32), ctypes.c_int])  # ext, K
     lib.lzt_lzma2_decode.restype = ctypes.c_int
     lib.lzt_lzma2_decode.argtypes = [
         u8p, ctypes.c_size_t,
@@ -123,6 +128,33 @@ def lzma2_encode(data: bytes, dict_size: int, chunk_size: int | None,
     return dst.raw[:n.value], prop.value
 
 
+def lzma2_encode_ext(data: bytes, ext, dict_size: int, chunk_size: int,
+                     lc: int = 3, lp: int = 0, pb: int = 2,
+                     effort: int = 9) -> tuple[bytes, int]:
+    """``lzma2_encode`` in dict-reset groups, with the parse drawing its
+    match candidates from ``ext``: int32 [len(data), K], the candidate
+    distances of each position (0 = none), local to the position's group
+    (X2, ``ops/match_find.py``, gives them so).  The parse measures each
+    candidate again, so ``ext`` steers the size, never the bytes decoded.
+    Returns (stream, prop)."""
+    ext = np.ascontiguousarray(ext, np.int32)
+    if ext.ndim != 2 or ext.shape[0] < len(data) or ext.shape[1] < 1:
+        raise ParamError(f"ext must be [len(data) = {len(data)}, K], got "
+                         f"{ext.shape}")
+    lib = _load()
+    cap = len(data) + len(data) // 2 + 4096 + 8 * (len(data) // 49152 + 2)
+    dst = ctypes.create_string_buffer(cap)
+    n = ctypes.c_size_t(cap)
+    prop = ctypes.c_int(0)
+    r = lib.lzt_lzma2_encode_ext(
+        _as_u8p(data), len(data),
+        ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)), ctypes.byref(n),
+        dict_size, chunk_size, 1, lc, lp, pb, effort, ctypes.byref(prop),
+        ext.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), ext.shape[1])
+    raise_for_sres(r)
+    return dst.raw[:n.value], prop.value
+
+
 def lzma2_decode(stream: bytes, prop: int,
                  size_hint: int | None = None) -> bytes:
     """Decode a raw LZMA2 stream (end byte included) on the host.
@@ -150,6 +182,11 @@ def crc64(data, value: int = 0) -> int:
     return _load().lzt_crc64(_as_u8p(data), len(data), value)
 
 
+def group_ops_cap(n: int) -> int:
+    """The most op words the fast parse of a group of ``n`` bytes returns."""
+    return 4 * n + 64
+
+
 def lzma2_group_ops(data: bytes, dict_size: int, *, lc: int = 3, lp: int = 0,
                     pb: int = 2, sub_size: int = 48 << 10):
     """Fast-parse one dict-reset group, exporting the op stream.
@@ -159,7 +196,7 @@ def lzma2_group_ops(data: bytes, dict_size: int, *, lc: int = 3, lp: int = 0,
     int32 table of cumulative (op words, unpack bytes, body bytes), and body
     the concatenated native chunk bodies."""
     lib = _load()
-    ops_cap = ctypes.c_size_t(4 * len(data) + 64)
+    ops_cap = ctypes.c_size_t(group_ops_cap(len(data)))
     ops = np.zeros(ops_cap.value, np.uint32)
     max_chunks = len(data) // 1024 + 2
     tab = np.zeros(max_chunks * 3, np.int32)

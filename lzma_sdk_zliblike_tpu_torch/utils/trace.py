@@ -50,12 +50,16 @@ class Tracer:
         try:
             yield
         finally:
-            dt = time.monotonic() - t0
-            with self._lock:
-                t = self._timers.setdefault(name, [0, 0.0, 0.0])
-                t[0] += 1
-                t[1] += dt
-                t[2] = max(t[2], dt)
+            self.record(name, time.monotonic() - t0)
+
+    def record(self, name: str, dt: float) -> None:
+        """One interval of ``dt`` seconds for timer ``name``, measured by
+        the caller (for example with CUDA events)."""
+        with self._lock:
+            t = self._timers.setdefault(name, [0, 0.0, 0.0])
+            t[0] += 1
+            t[1] += dt
+            t[2] = max(t[2], dt)
 
     def snapshot(self) -> dict:
         with self._lock:
