@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port's LZMA2 decode and encode paths, its host
-and hybrid decode and encode engines, its xz container, its match finder and
-its bit-call probes on one NVIDIA GPU.
+and hybrid decode and encode engines, its xz container, its match finder,
+its bit-call probes and its multi-process decode and encode (two ranks
+sharing the card) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -106,6 +107,25 @@ Phases, each printed as one JSON line:
    must decode to the original with Python's ``lzma`` and with K1, and its
    first 4 MiB must give the same stream through X2 on the CPU; its size is
    set beside ``encode_lzma2_mt``'s at the same dictionary and chunk.
+14. distributed decode: two ranks on ``cuda:0`` over Gloo
+   (``run_local_cluster``; the inputs in a temporary directory) decode
+   phase 3's stream with ``decode_groups_distributed`` at its defaults:
+   rank 0's output must be the original, rank 1's None, each rank must
+   launch K1 (counted and timed by CUDA events in the rank), with no host
+   fallback or lane retry.  Each rank reports its groups, K1 ms, budget,
+   gather ms, wall after ``initialize`` and idle share; MB/s beside
+   phase 3's and ``host_mt``'s.  Then a copy of the stream with one byte
+   corrupted in group 100, which rank 1 decodes (the native decoder must
+   refuse the group too): both ranks must raise DataError within 120 s.
+15. distributed encode: two ranks encode phase 3's data with
+   ``encode_groups_distributed`` (1 MiB dictionary and chunk, each rank on
+   half the cores); every rank's stream must equal phase 6's
+   ``encode_lzma2_mt`` stream (SHA-256), MB/s beside the host MT
+   encoder's.
+16. dry run: ``entry.dryrun_multichip(2)`` on ``cuda:0`` (each rank's
+   sharded K1 lanes against the plain version, the 2-axis mesh, sharded X2
+   against one call on the CPU, a distributed encode round trip) and
+   ``entry()``'s K1 call on the card, each lane against its original.
 
 Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
 one compression per group, so the original bytes are the ground truth.
@@ -124,6 +144,7 @@ chunk's bit calls at ``lane-notr``'s).  Any failure exits non-zero.
 from __future__ import annotations
 
 import concurrent.futures
+import hashlib
 import importlib.util
 import json
 import lzma
@@ -131,6 +152,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1284,6 +1306,223 @@ def encode_device(data: bytes, device) -> dict:
     return res
 
 
+# Phases 14-16 run their ranks with ``run_local_cluster``: fresh
+# interpreters, rank r reading LOCAL_RANK = r, so that both share cuda:0.
+# Each rank prints one line "RANK {json}".
+RANK_HEADER = r"""
+import hashlib, json, sys, time
+import torch
+from lzma_sdk_zliblike_tpu_torch.parallel import distributed as D
+from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
+from lzma_sdk_zliblike_tpu_torch.utils.trace import TRACE
+args = json.loads(sys.argv[1])
+D.initialize()
+world, rank = D.world_and_rank()
+"""
+
+DIST_DECODE = RANK_HEADER + r"""
+stream = open(args["stream"], "rb").read()
+marks, submit = [], G.submit_groups
+
+def timed_submit(*a, **kw):
+    m = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    m[0].record()
+    h = submit(*a, **kw)
+    m[1].record()
+    marks.append(m)
+    return h
+
+G.submit_groups = timed_submit
+G.launches = 0
+TRACE.reset()
+t = time.perf_counter()
+out = D.decode_groups_distributed(stream, dict_prop=args["prop"],
+                                  device="cuda")
+torch.cuda.synchronize()
+wall = time.perf_counter() - t
+snap = TRACE.snapshot()
+k1_ms = sum(a.elapsed_time(b) for a, b in marks)
+print("RANK " + json.dumps({
+    "rank": rank, "device": str(torch.cuda.current_device()),
+    "groups": snap.get("distributed.groups", 0), "launches": G.launches,
+    "k1_ms": k1_ms, "budget": snap.get("distributed.budget", 0),
+    "lanes": snap.get("distributed.lanes", 0),
+    "gather_ms": snap.get("distributed.gather", {}).get("total_s", 0) * 1e3,
+    "wall_s": wall, "device_idle_share": 1 - k1_ms / (wall * 1e3),
+    "host_fallback_groups": snap.get("scheduler.host_fallback_groups", 0),
+    "lane_retries": snap.get("scheduler.lane_retries", 0),
+    "output_sha256": None if out is None
+    else hashlib.sha256(out).hexdigest()}), flush=True)
+"""
+
+DIST_CORRUPT = RANK_HEADER + r"""
+from lzma_sdk_zliblike_tpu_torch.utils.errors import DataError
+stream = open(args["stream"], "rb").read()
+t = time.perf_counter()
+try:
+    D.decode_groups_distributed(stream, dict_prop=args["prop"], device="cuda")
+except DataError as e:
+    print("RANK " + json.dumps({"rank": rank, "raised": "DataError",
+                                "seconds": time.perf_counter() - t,
+                                "message": str(e)[:300]}), flush=True)
+    sys.exit(3)
+print("RANK " + json.dumps({"rank": rank, "raised": None}), flush=True)
+"""
+
+DIST_ENCODE = RANK_HEADER + r"""
+data = open(args["data"], "rb").read()
+t = time.perf_counter()
+stream, prop = D.encode_groups_distributed(data, dict_size=args["mib"],
+                                           chunk_size=args["mib"])
+print("RANK " + json.dumps({
+    "rank": rank, "seconds": time.perf_counter() - t, "prop": prop,
+    "packed": len(stream), "stream_sha256": hashlib.sha256(stream).hexdigest(),
+    "threads": TRACE.snapshot().get("distributed.encode_threads", 0)}),
+    flush=True)
+"""
+
+
+def cluster(script: str, n: int, args: dict, timeout: float) -> tuple:
+    """``script`` on ``n`` local ranks (``run_local_cluster``) with ``args``
+    as JSON in ``sys.argv[1]``: (exit codes, each rank's RANK line or None,
+    the tails of their outputs, the launcher's wall seconds)."""
+    from lzma_sdk_zliblike_tpu_torch.parallel.distributed import (
+        run_local_cluster)
+    code = f"import sys; sys.argv[1:] = [{json.dumps(json.dumps(args))}]\n"
+    t = time.perf_counter()
+    runs = run_local_cluster(n, code + script, timeout=timeout)
+    wall = time.perf_counter() - t
+    lines = []
+    for r in runs:
+        found = [ln[5:] for ln in r.stdout.decode(errors="replace")
+                 .splitlines() if ln.startswith("RANK ")]
+        lines.append(json.loads(found[-1]) if found else None)
+    tails = [r.stdout.decode(errors="replace")[-1500:] for r in runs]
+    return [r.returncode for r in runs], lines, tails, wall
+
+
+def distributed_decode(tmp: str, stream: bytes, prop: int, data: bytes,
+                       main_mb_s: float, host_mt_mb_s: float) -> dict:
+    """Phase 14: two ranks on cuda:0 decode phase 3's stream with
+    ``decode_groups_distributed`` at its defaults: rank 0's output must be
+    the original, each rank must launch K1, with no host fallback or lane
+    retry.  Then a copy of the stream with one byte corrupted in group 100,
+    which rank 1 decodes: both ranks must raise DataError within 120 s."""
+    import hashlib
+    from lzma_sdk_zliblike_tpu_torch import native
+    from lzma_sdk_zliblike_tpu_torch.models.lzma2 import framing
+    from lzma_sdk_zliblike_tpu_torch.parallel.host_pool import group_span
+    from lzma_sdk_zliblike_tpu_torch.utils.errors import DataError
+    path = os.path.join(tmp, "stream")
+    with open(path, "wb") as f:
+        f.write(stream)
+    rcs, ranks, tails, wall = cluster(
+        DIST_DECODE, 2, {"stream": path, "prop": prop}, timeout=300)
+    res = {"ranks": ranks, "exit_codes": rcs, "launcher_seconds": wall}
+    good = all(r is not None for r in ranks)
+    if good:
+        dec_s = max(r["wall_s"] for r in ranks)
+        res.update(bytes=len(data), seconds=dec_s,
+                   mb_per_s=len(data) / dec_s / 1e6, main_mb_per_s=main_mb_s,
+                   host_mt_mb_per_s=host_mt_mb_s,
+                   launches=sum(r["launches"] for r in ranks),
+                   output_equal=ranks[0]["output_sha256"]
+                   == hashlib.sha256(data).hexdigest())
+    else:
+        res["tails"] = tails
+    res["pass"] = (good and rcs == [0, 0] and res["output_equal"]
+                   and ranks[1]["output_sha256"] is None
+                   and all(r["launches"] > 0 and r["host_fallback_groups"] == 0
+                           and r["lane_retries"] == 0 for r in ranks))
+    # the corrupt copy: group 100 falls in rank 1's block of its batch
+    lanes = ranks[1]["lanes"] if good else 0
+    groups = framing.split_groups(framing.scan(stream)[0])
+    c = groups[100][0]
+    bad = bytearray(stream)
+    bad[c.data_off + c.pack_size // 2] ^= 0x55
+    bad = bytes(bad)
+    try:
+        start, end, size = group_span(bad, groups[100])
+        native.lzma2_decode(bad[start:end] + b"\x00", prop, size_hint=size)
+        detectable = False
+    except DataError:
+        detectable = True
+    path = os.path.join(tmp, "corrupt")
+    with open(path, "wb") as f:
+        f.write(bad)
+    del bad
+    t = time.perf_counter()
+    rcs, ranks, tails, _ = cluster(DIST_CORRUPT, 2,
+                                   {"stream": path, "prop": prop},
+                                   timeout=300)
+    sec = time.perf_counter() - t
+    c_ok = all(r is not None and r["raised"] == "DataError" for r in ranks)
+    res["corrupt"] = {"group": 100, "lanes": lanes,
+                      "dealt_to_rank": 100 % (2 * lanes) // lanes
+                      if lanes else None,
+                      "native_decoder_refuses": detectable,
+                      "ranks": ranks, "exit_codes": rcs,
+                      "launcher_seconds": sec,
+                      "pass": detectable and c_ok and rcs == [3, 3]
+                      and lanes > 0 and 100 % (2 * lanes) // lanes == 1
+                      and all(r["seconds"] < 120 for r in ranks)
+                      and "rank 1" in ranks[0]["message"]}
+    if not res["corrupt"]["pass"]:
+        res["corrupt"]["tails"] = tails
+    res["pass"] = res["pass"] and res["corrupt"]["pass"]
+    return res
+
+
+def distributed_encode(tmp: str, data: bytes, ref_sha: str, ref_prop: int,
+                       host_mt_mb_s: float) -> dict:
+    """Phase 15: two ranks encode phase 3's data with
+    ``encode_groups_distributed`` at a 1 MiB dictionary and chunk: every
+    rank's stream must equal phase 6's ``encode_lzma2_mt`` stream (by
+    SHA-256)."""
+    path = os.path.join(tmp, "data")
+    with open(path, "wb") as f:
+        f.write(data)
+    rcs, ranks, tails, wall = cluster(DIST_ENCODE, 2,
+                                      {"data": path, "mib": MIB}, timeout=300)
+    res = {"ranks": ranks, "exit_codes": rcs, "launcher_seconds": wall}
+    good = all(r is not None for r in ranks)
+    if good:
+        sec = max(r["seconds"] for r in ranks)
+        res.update(bytes=len(data), seconds=sec,
+                   mb_per_s=len(data) / sec / 1e6,
+                   host_mt_mb_per_s=host_mt_mb_s,
+                   equal_host_mt=all(r["stream_sha256"] == ref_sha
+                                     and r["prop"] == ref_prop
+                                     for r in ranks))
+    else:
+        res["tails"] = tails
+    res["pass"] = good and rcs == [0, 0] and res["equal_host_mt"]
+    return res
+
+
+def dryrun_phase(device) -> dict:
+    """Phase 16: ``entry.dryrun_multichip(2)`` (two ranks on cuda:0: sharded
+    K1 lanes against the plain version, the 2-axis mesh, sharded X2, a
+    distributed encode round trip) and ``entry()`` on the card, each lane
+    against its original."""
+    from lzma_sdk_zliblike_tpu_torch import entry
+    t = time.perf_counter()
+    dry = entry.dryrun_multichip(2, device="cuda", timeout=600)
+    res = {"seconds": time.perf_counter() - t, **dry}
+    G = entry.G
+    G.launches = 0
+    fn, args = entry.entry(device=device)
+    out, ok, _ = fn(*args)
+    _, _, origs = entry.make_batch(8)
+    res["entry"] = {"launches": G.launches, "lanes": len(origs),
+                    "originals_equal": bool(ok.all()) and all(
+                        out[i, :len(o)].numpy().tobytes() == o
+                        for i, o in enumerate(origs))}
+    res["pass"] = (res["launches"] > 0 and res["entry"]["originals_equal"]
+                   and res["entry"]["launches"] == 1)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1378,6 +1617,7 @@ def main() -> int:
 
     # -- 6. encode main: 128 MiB in 1 MiB groups ------------------------------
     p6, ref_mt = encode_main(data, device)
+    ref_mt_sha = hashlib.sha256(ref_mt).hexdigest()
     emit({"phase": "encode_main", **p6})
     if not p6["pass"]:
         failed.append("encode_main")
@@ -1429,6 +1669,23 @@ def main() -> int:
     if not p13["pass"]:
         failed.append("encode_device")
 
+    # -- 14-16. two ranks on cuda:0 over Gloo ---------------------------------
+    torch.cuda.empty_cache()       # the ranks size their batches to free memory
+    with tempfile.TemporaryDirectory() as tmp:
+        p14 = distributed_decode(tmp, stream, prop, data, p3["mb_per_s"],
+                                 ph[0]["mb_per_s"])
+        emit({"phase": "distributed_decode", **p14})
+        p15 = distributed_encode(tmp, data, ref_mt_sha,
+                                 framing.encode_dict_prop(MIB),
+                                 p6["host_mt_mb_per_s"])
+        emit({"phase": "distributed_encode", **p15})
+    p16 = dryrun_phase(device)
+    emit({"phase": "dryrun_multichip", **p16})
+    for name, res in (("distributed_decode", p14),
+                      ("distributed_encode", p15), ("dryrun_multichip", p16)):
+        if not res["pass"]:
+            failed.append(name)
+
     # K1's chain bound: the longest lane's bit calls on main at the cost of
     # one dependent pure-ALU bit call that phase 7 measured
     ns_per_bit_call = lane_notr_ns(p7["P1"])
@@ -1459,7 +1716,9 @@ def main() -> int:
         "hybrid_1t_launches": ph[2]["launches"],
         "hybrid_abort_launches": ph[3]["launches"],
         "xz_launches": p9["launches"],
-        "xz_liblzma_block_launches": p9["liblzma_block"]["launches"]}, {
+        "xz_liblzma_block_launches": p9["liblzma_block"]["launches"],
+        "distributed_launches": p14.get("launches", 0),
+        "dryrun_launches": p16["launches"]}, {
         "name": "range_encode (K2)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/range_encode.cu",
         "replaces": "lzma_sdk_zliblike_tpu/ops/pallas_encode.py:78",

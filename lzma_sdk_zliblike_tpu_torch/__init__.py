@@ -9,13 +9,17 @@ encoders on one group queue (``encode_lzma2_hybrid``); device-assisted
 encode finds match candidates on the card (X2, torch ops) for the host
 coder (``encode_lzma2_device``).  ``containers/xz.py``
 reads and writes .xz images, its blocks decoded through the same engines.
-``device="cpu"`` runs the kernels' plain PyTorch versions instead.
+``decode_groups_distributed`` / ``encode_groups_distributed`` deal the
+groups over the ranks of a ``torch.distributed`` process group, K1 on each
+rank's card (``parallel/distributed.py``).  ``device="cpu"`` runs the kernels' plain PyTorch versions instead.
 """
 
 from .api import lzma2_uncompress
 from .parallel.device_encode import (encode_lzma2_device,
                                      encode_lzma2_device_coded,
                                      encode_lzma2_hybrid)
+from .parallel.distributed import (decode_groups_distributed,
+                                   encode_groups_distributed)
 from .parallel.host_pool import decode_lzma2_mt
 from .parallel.hybrid import decode_lzma2_hybrid
 from .utils.errors import (ArchiveError, CrcError, DataError, InputEofError,
@@ -24,6 +28,8 @@ from .utils.errors import (ArchiveError, CrcError, DataError, InputEofError,
 
 __all__ = ["lzma2_uncompress", "encode_lzma2_device_coded",
            "encode_lzma2_hybrid", "encode_lzma2_device",
-           "decode_lzma2_mt", "decode_lzma2_hybrid", "LzmaError",
+           "decode_lzma2_mt", "decode_lzma2_hybrid",
+           "decode_groups_distributed", "encode_groups_distributed",
+           "LzmaError",
            "DataError", "CrcError", "InputEofError", "ParamError",
            "ProgressAborted", "ArchiveError", "UnsupportedError"]

@@ -167,6 +167,29 @@ def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
     return GroupBatch(out, *status, done=done)
 
 
+def submit_groups_sharded(src, pack_ends, unpack_ends, flags, active, *,
+                          dic_cap: int, world: int, rank: int, lc: int = 3,
+                          lp: int = 0, pb: int = 2,
+                          device="cuda") -> GroupBatch:
+    """``submit_groups`` of rank ``rank``'s lanes of a batch dealt over
+    ``world`` ranks (the JAX package's ``submit_groups_sharded``).
+
+    Every rank holds the whole batch as host arrays (src uint8 [S,
+    pack_cap], the chunk tables int32 [S, C], active int32 [S]; the stream
+    bytes are the broadcast) and decodes the contiguous block
+    ``parallel/mesh.lane_shard(S, world, rank)`` on ``device``: K1 on a
+    card, the plain version on the CPU.  Lanes are independent, so nothing
+    crosses ranks during the decode.  Returns a ``GroupBatch`` of those
+    lanes, in order, for ``finalize_chunks``.  Raises ValueError unless the
+    S lanes split evenly over ``world``."""
+    from ..parallel.mesh import lane_shard
+    shard = lane_shard(len(src), world, rank)
+    return submit_groups(
+        *prep_groups(*(a[shard] for a in (src, pack_ends, unpack_ends, flags,
+                                          active)), device=device),
+        dic_cap=dic_cap, lc=lc, lp=lp, pb=pb)
+
+
 def batch_done(handle: GroupBatch) -> bool:
     """Whether a submitted batch has finished, without waiting: the launch
     stream has passed the batch's event (always true on the CPU, where

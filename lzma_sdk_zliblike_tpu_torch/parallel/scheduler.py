@@ -109,21 +109,35 @@ class BatchedLzma2Decoder:
     def decode_groups(self, stream: bytes,
                       groups: list[list[framing.Chunk]]) -> list[bytes]:
         """Decode dict-reset groups, preserving order (ordered gather)."""
-        results: list[bytes | None] = [None] * len(groups)
-        by_props: dict[tuple[int, int, int], list[int]] = {}
-        for gi, g in enumerate(groups):
-            if all(not c.is_lzma for c in g):
-                results[gi] = b"".join(
-                    stream[c.data_off:c.data_off + c.pack_size] for c in g)
-            elif (props := self._eligible(g)) is not None:
-                by_props.setdefault(props, []).append(gi)
-            else:
-                TRACE.add("scheduler.host_fallback_groups")
-                results[gi] = decode_group_native(stream, g, _HOST_DICT_PROP)
+        results, by_props = self.route(stream, groups)
         for props, idx in by_props.items():
             self._decode_on_device(stream, groups, idx, results, props,
                                    self._multi_k(len(idx)))
         return results  # type: ignore[return-value]
+
+    def route(self, stream: bytes, groups: list[list[framing.Chunk]], *,
+              host: bool = True):
+        """Sort groups by where they decode: ``(results, by_props)``.
+
+        Copy-only groups are copied and the groups the card cannot take
+        are decoded by the native host decoder into ``results`` (list by
+        group index, None elsewhere); with ``host=False`` both are left to
+        another process and stay None.  ``by_props`` lists the indices of
+        the card's groups per (lc, lp, pb), in group order."""
+        results: list[bytes | None] = [None] * len(groups)
+        by_props: dict[tuple[int, int, int], list[int]] = {}
+        for gi, g in enumerate(groups):
+            if all(not c.is_lzma for c in g):
+                if host:
+                    results[gi] = b"".join(
+                        stream[c.data_off:c.data_off + c.pack_size]
+                        for c in g)
+            elif (props := self._eligible(g)) is not None:
+                by_props.setdefault(props, []).append(gi)
+            elif host:
+                TRACE.add("scheduler.host_fallback_groups")
+                results[gi] = decode_group_native(stream, g, _HOST_DICT_PROP)
+        return results, by_props
 
     def _multi_k(self, n_groups: int) -> int:
         """Groups per lane: 1 while every group has a lane of its own, and
