@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port's LZMA2 decode and encode paths, its host
 and hybrid decode and encode engines, its xz container, its match finder,
-its bit-call probes and its multi-process decode and encode (two ranks
-sharing the card) on one NVIDIA GPU.
+its bit-call probes, its multi-process decode and encode (two ranks
+sharing the card), its device CRC and batched filters and its one-call
+raw-LZMA API on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,7 +11,8 @@ Phases, each printed as one JSON line:
 
 1. build: nvcc builds every kernel of the paths (``csrc/*.cu``: K1
    ``group_decode``, K2 ``range_encode``, P1 ``v12_probe``, P2
-   ``compact_probe``) for sm_90a; the ``-Xptxas -v``
+   ``compact_probe``, X3 ``checksum``, X4 ``device_filters``) for sm_90a;
+   the ``-Xptxas -v``
    report (registers, shared memory, spills) is printed.
 2. kernel vs plain: K1 on CUDA tensors against ``group_decode_plain`` on CPU
    copies of the same 16-lane batch (single- and multi-chunk groups, mid-group
@@ -126,6 +128,24 @@ Phases, each printed as one JSON line:
    sharded K1 lanes against the plain version, the 2-axis mesh, sharded X2
    against one call on the CPU, a distributed encode round trip) and
    ``entry()``'s K1 call on the card, each lane against its original.
+17. checksum_device: X3 (``ops/checksum.py``, ``csrc/checksum.cu``) at
+   sizes 0 to 1 MiB and two init values each, equal to ``binascii.crc32``
+   and ``native.crc64``, its block states and combine equal to the plain
+   versions on CPU copies; then CRC64 and CRC32 of the 128 MiB on the card
+   (counted), the kernels timed by CUDA events, the whole call and the
+   hosts' CRCs on the host clock; bound: the bytes at 3.35 TB/s.
+18. device_filters: X4 (``ops/device_filters.py``, ``csrc/device_filters.cu``
+   for x86 and BCJ2): the eight functions on the card against their plain
+   versions on CPU copies and the host's ``ops/filters.py`` on the salted
+   batch of tests/test_device_filters.py, round trips, BCJ2 with two
+   truncated rc lanes (``ok`` false); then one lane per SM of 1 MiB of
+   ``x86_like``: x86 encode (equal to the host's) and decode, BCJ2 decode of
+   ``bcj2_encode``'s streams (equal to the input), counted and timed.
+19. one_call: ``lzma2_compress`` of the 128 MiB (1 MiB dictionary and
+   chunk, every core) and ``lzma2_uncompress`` of it on the card (K1
+   launched), ``compress``/``uncompress`` of 8 MiB at level 5 (read back by
+   Python's ``lzma``), a ``.lzma86`` round trip of 4 MiB, and
+   ``lzma2_compress_stream`` fed in 1 MiB pieces equal to one piece.
 
 Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
 one compression per group, so the original bytes are the ground truth.
@@ -138,7 +158,9 @@ P1 ``lane-notr``, with the window and blocks per SM that its launcher chose
 on phase 3; K2 has the bytes bound, which leaves out the scratch of its own
 design, and a chain bound, an estimate: the larger of its longest lane's ops
 at P1 ``lane``'s cost of a dependent shared-memory update and its longest
-chunk's bit calls at ``lane-notr``'s).  Any failure exits non-zero.
+chunk's bit calls at ``lane-notr``'s; X3 and X4's two kernels have their
+bytes bounds, measured on phases 17 and 18, which alone launch them).  Any
+failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -1523,6 +1545,397 @@ def dryrun_phase(device) -> dict:
     return res
 
 
+# -- phases 17-19: X3, X4 and the one-call raw-LZMA API ----------------------
+
+CRC_SIZES = (0, 1, 63, 64, 65, 4097, MIB)
+CRC_INITS = {32: 0xABCDEF, 64: 0x123456789A}
+M64 = (1 << 64) - 1
+
+
+def checksum_device(data: bytes, device) -> tuple[dict, dict]:
+    """Phase 17: X3 (``ops/checksum.py``).  At every size of CRC_SIZES
+    (data from a seed) and init values 0 and CRC_INITS, ``crc32_device`` /
+    ``crc64_device`` on the card must equal ``binascii.crc32`` and the
+    port's ``native.crc64``; the block states of the kernel must equal
+    ``block_states_plain`` on CPU copies and the kernel's combine
+    ``combine_plain`` (tolerance 0: integer programs).  Then 128 MiB of the
+    corpus: both calls with the launch counts set to 0 just before (equal
+    to the hosts'), the kernels alone by CUDA events (block states and
+    combine, best of 3 after a warm-up), the whole call on the host clock
+    (the pad, the copy to the card and the host fixup included) and the
+    hosts' ``native.crc64`` / ``binascii.crc32`` on the same bytes.
+    Returns the phase line and the X3 entry of the kernels line."""
+    import binascii
+    import torch
+    from lzma_sdk_zliblike_tpu_torch import native
+    from lzma_sdk_zliblike_tpu_torch.ops import checksum as C
+    from lzma_sdk_zliblike_tpu_torch.tools import best_ms
+    rng = np.random.default_rng(17)
+    host = {32: binascii.crc32, 64: native.crc64}
+    dev_fn = {32: C.crc32_device, 64: C.crc64_device}
+    res = {"sizes": list(CRC_SIZES), "mismatches": [], "checks": 0}
+    err = plain_ms = 0
+    for n in CRC_SIZES:
+        d = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        buf = torch.from_numpy(C.prep(d)[0])
+        for width in (32, 64):
+            for value in (0, CRC_INITS[width]):
+                res["checks"] += 1
+                if dev_fn[width](d, value, device=device) != \
+                        host[width](d, value):
+                    res["mismatches"].append([n, width, value])
+            t = time.perf_counter()
+            plain = C.block_states_plain(buf, width)
+            plain_c = C.combine_plain(plain, width)
+            if n == MIB:
+                plain_ms += (time.perf_counter() - t) * 1e3
+            kern = C.crc_blocks(buf.to(device), width)
+            kern_c = C.crc_combine(kern, width)
+            kern = kern.cpu()
+            bad = kern != plain
+            res["mismatched_states"] = res.get("mismatched_states", 0) + \
+                int(bad.sum()) + int(kern_c != plain_c)
+            err = max([err, abs(kern_c - plain_c)] + [
+                abs((a & M64) - (b & M64)) for a, b in
+                zip(kern[bad].tolist(), plain[bad].tolist())])
+    res["plain_ms_1mib"] = plain_ms
+    # the main path: 128 MiB, each width once, counts from 0
+    C.launches = C.combine_launches = 0
+    walls = {}
+    for width in (64, 32):
+        t = time.perf_counter()
+        got = dev_fn[width](data, device=device)
+        walls[width] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = host[width](data)
+        res[f"host_crc{width}_ms"] = (time.perf_counter() - t) * 1e3
+        res[f"crc{width}_equal"] = got == want
+    launches, combine_launches = C.launches, C.combine_launches
+    buf = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(device)
+    for width in (64, 32):
+        res[f"crc{width}_call_ms"] = walls[width]
+        res[f"crc{width}_kernel_ms"] = best_ms(
+            lambda: C.crc_combine(C.crc_blocks(buf, width), width))
+        res[f"crc{width}_blocks_ms"] = best_ms(
+            lambda: C.crc_blocks(buf, width))
+    res["bound_ms"] = len(data) / HBM_BYTES_PER_S * 1e3
+    res["launches"], res["combine_launches"] = launches, combine_launches
+    res["pass"] = (not res["mismatches"] and err == 0 and res["crc64_equal"]
+                   and res["crc32_equal"] and launches == 2
+                   and combine_launches > 0)
+    entry = {"name": "checksum (X3)", "route": "cuda",
+             "source": "lzma_sdk_zliblike_tpu_torch/csrc/checksum.cu",
+             "replaces": "lzma_sdk_zliblike_tpu/ops/checksum.py:146",
+             "launches": launches, "combine_launches": combine_launches,
+             "matches_plain": err == 0 and not res["mismatches"],
+             "max_abs_err": err, "ms": res["crc64_kernel_ms"],
+             "crc32_ms": res["crc32_kernel_ms"],
+             "plain_ms": plain_ms, "plain_bytes": MIB,
+             "bound_ms": res["bound_ms"], "bound_by": "bytes",
+             "library_ms": None, "host_crc64_ms": res["host_crc64_ms"],
+             "call_ms": res["crc64_call_ms"]}
+    return res, entry
+
+
+def mk_filter_batch(seed, S=5, L=4096):
+    """tests/test_device_filters.py's salted batch (``_mk_batch``), rebuilt:
+    every converter's opcodes, x86 clusters for the prev-mask heuristic,
+    lanes of full, short, 8-byte and empty ``valid``."""
+    random_bytes = corpus_module().random_bytes
+    rng = np.random.default_rng(seed)
+    data = np.frombuffer(random_bytes(S * L, seed=seed), np.uint8).reshape(
+        S, L).copy()
+    for s in range(S):
+        for _ in range(40):
+            off = int(rng.integers(0, L - 4)) & ~3
+            data[s, off + 3] = 0xEB
+            off = int(rng.integers(0, L - 4)) & ~3
+            data[s, off] = 0x48
+            data[s, off + 3] |= 1
+            off = int(rng.integers(0, L - 4)) & ~3
+            data[s, off] = 0x40
+            data[s, off + 1] &= 0x3F
+            off = int(rng.integers(0, L - 4)) & ~1
+            data[s, off + 1] = 0xF0 | (data[s, off + 1] & 7)
+            data[s, off + 3] = 0xF8 | (data[s, off + 3] & 7)
+            off = int(rng.integers(0, (L - 16) // 16)) * 16
+            data[s, off] = 0x16
+            data[s, off + 1] &= 0x3F
+            data[s, off + 2] &= 0xFE
+            data[s, off + 5] = (data[s, off + 5] & 0xC3) | 0x14
+            off = int(rng.integers(0, L - 12))
+            data[s, off] = 0xE8
+            data[s, off + 4] = 0x00
+            off = int(rng.integers(0, L - 12))
+            data[s, off] = 0xE9
+            data[s, off + 4] = 0xFF
+            off = int(rng.integers(0, L - 14))
+            data[s, off] = 0xE8
+            data[s, off + 2] = 0xE8
+            data[s, off + 6] = 0xFF
+            off = int(rng.integers(0, L - 14))
+            data[s, off] = 0xE8
+            data[s, off + 1] = 0xE8
+            data[s, off + 2] = 0xE8
+            data[s, off + 5] = 0x00
+            data[s, off + 6] = 0x00
+    valid = np.array([L, L - 4, L - 128, 8, 0][:S], np.int32)
+    ip = np.array([0, 4096, 12345 & ~3, 0, 0][:S], np.uint32)
+    return data, valid, ip
+
+
+def bcj2_batch(datas, truncate: bool):
+    """BCJ2 streams of ``datas`` (``ops/filters.bcj2_encode``) padded into a
+    batch; with ``truncate`` two more lanes copy lane 0 with its rc stream
+    cut to half and to 3 bytes (both must give ok=False).  Returns (args of
+    ``bcj2_decode_batch`` as CPU tensors, expected ok)."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import filters as F
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        lanes = list(pool.map(F.bcj2_encode, datas))
+    sizes = [len(d) for d in datas]
+    ok = [True] * len(datas)
+    if truncate:
+        m, c, j, r = lanes[0]
+        lanes += [(m, c, j, r[:len(r) // 2]), (m, c, j, r[:3])]
+        sizes += [sizes[0]] * 2
+        ok += [False, False]
+    args = []
+    for k in range(4):
+        bufs = [t[k] for t in lanes]
+        cap = max(8, -(-max(len(b) for b in bufs) // 4) * 4)
+        arr = np.zeros((len(bufs), cap), np.uint8)
+        for i, b in enumerate(bufs):
+            arr[i, :len(b)] = np.frombuffer(b, np.uint8)
+        args += [torch.from_numpy(arr),
+                 torch.tensor([len(b) for b in bufs], dtype=torch.int32)]
+    return args + [torch.tensor(sizes, dtype=torch.int32)], ok
+
+
+def device_filters(device) -> tuple[dict, list]:
+    """Phase 18: X4 (``ops/device_filters.py``).  Each of the eight
+    functions on the card against its plain version on CPU copies
+    (tolerance 0) and the host's ``ops/filters.py`` per lane, on the salted
+    batch at both directions, with encode then decode round-tripping; delta
+    at distances 1, 4 and 255.  BCJ2 on the JAX test's salted lanes plus two
+    with a truncated rc stream: ``ok`` flag for flag and ``out`` on every ok
+    lane equal to the plain version's, each ok lane equal to its original.
+    Then the wide batches, one lane per SM of 1 MiB of ``x86_like`` (8
+    distinct lanes, repeated): x86 encode on the card equal per lane to the
+    host's ``x86_convert``, decode giving the input back, and BCJ2 decode of
+    its ``bcj2_encode`` streams equal to the input, with the launch counts
+    set to 0 just before; each kernel timed by CUDA events on them (best of
+    3 after a warm-up), bound by its bytes.  Returns the phase line and the
+    two X4 entries of the kernels line."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
+    from lzma_sdk_zliblike_tpu_torch.ops import filters as F
+    from lzma_sdk_zliblike_tpu_torch.tools import best_ms
+    cm = corpus_module()
+    res = {"checks": [], "mismatches": []}
+    host = {"x86": lambda b, i, encoding: F.x86_convert(b, i, encoding)[0]}
+    plain_ms = {"x86": 0.0, "bcj2": 0.0}
+    x86_err = 0
+    for k, name in enumerate(("arm", "armt", "ppc", "sparc", "ia64", "x86")):
+        data, valid, ip = mk_filter_batch(k * 101 + 3)
+        fn = host.get(name, getattr(F, f"{name}_convert"))
+        for encoding in (True, False):
+            t = time.perf_counter()
+            plain = DF.convert_batch(name, data, valid, ip, encoding=encoding,
+                                     device="cpu")
+            if name == "x86":
+                plain_ms["x86"] += (time.perf_counter() - t) * 1e3
+            kern = DF.convert_batch(name, data, valid, ip, encoding=encoding,
+                                    device=device)
+            if name == "x86":
+                x86_err = max(x86_err, int(np.abs(
+                    kern.astype(np.int64) - plain.astype(np.int64)).max()))
+            same = np.array_equal(kern, plain) and all(
+                kern[s, :n].tobytes() == fn(data[s, :n].tobytes(), int(ip[s]),
+                                             encoding=encoding)
+                for s, n in enumerate(valid.tolist()))
+            if encoding:      # round trip at 16-aligned offsets (ia64's)
+                ip16 = ip & ~np.uint32(15)
+                enc = DF.convert_batch(name, data, valid, ip16, encoding=True,
+                                       device=device)
+                back = DF.convert_batch(name, enc, valid, ip16,
+                                        encoding=False, device=device)
+                same = same and np.array_equal(back, data[:, :back.shape[1]])
+            res["checks"].append([name, encoding, bool(same)])
+            if not same:
+                res["mismatches"].append([name, encoding])
+    data, valid, _ = mk_filter_batch(7)
+    for dist in (1, 4, 255):
+        t_d, t_v = torch.from_numpy(data), torch.from_numpy(valid)
+        enc = DF.delta_batch(t_d.to(device), t_v.to(device), dist=dist,
+                             encoding=True)
+        dec = DF.delta_batch(enc, t_v.to(device), dist=dist, encoding=False)
+        same = (torch.equal(enc.cpu(), DF.delta_batch(t_d, t_v, dist=dist,
+                                                      encoding=True))
+                and torch.equal(dec.cpu(), t_d))
+        res["checks"].append(["delta", dist, bool(same)])
+        if not same:
+            res["mismatches"].append(["delta", dist])
+    # BCJ2: the JAX test's lanes and two truncated rc streams
+    rng = np.random.default_rng(11)
+    datas = []
+    for s in range(4):
+        d = bytearray(cm.random_bytes(8192 + 512 * s, seed=100 + s))
+        for _ in range(60):
+            off = int(rng.integers(0, len(d) - 8))
+            kind = int(rng.integers(0, 3))
+            if kind == 2:
+                d[off] = 0x0F
+                d[off + 1] = 0x80 | int(rng.integers(0, 16))
+            else:
+                d[off] = 0xE8 + kind
+            d[off + 5] = 0x00 if rng.integers(0, 2) else 0xFF
+        datas.append(bytes(d))
+    args, want_ok = bcj2_batch(datas, truncate=True)
+    t = time.perf_counter()
+    p_out, p_ok = DF.bcj2_decode_batch(*args)
+    plain_ms["bcj2"] = (time.perf_counter() - t) * 1e3
+    k_out, k_ok = DF.bcj2_decode_batch(*[a.to(device) for a in args])
+    k_out, k_ok = k_out.cpu(), k_ok.cpu()
+    good = torch.tensor(want_ok)
+    bcj2_err = int((k_out[good].long() - p_out[good].long()).abs().max())
+    bcj2_same = (k_ok.tolist() == p_ok.tolist() == want_ok and all(
+        torch.equal(k_out[s], p_out[s]) for s in range(len(want_ok))
+        if want_ok[s]) and all(k_out[s, :len(d)].numpy().tobytes() == d
+                               for s, d in enumerate(datas)))
+    res["bcj2_check"] = {"ok": k_ok.tolist(), "equal": bool(bcj2_same)}
+    # the wide batches: one lane per SM of 1 MiB of x86_like
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    distinct = [cm.x86_like(MIB, seed=60 + i) for i in range(8)]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        refs = list(pool.map(lambda d: F.x86_convert(d, 0, True)[0],
+                             distinct))
+    rows = np.stack([np.frombuffer(distinct[i % 8], np.uint8)
+                     for i in range(sms)])
+    wide = torch.from_numpy(rows).to(device)
+    valid = torch.full((sms,), MIB, dtype=torch.int32, device=device)
+    ip = torch.zeros(sms, dtype=torch.int64, device=device)
+    bargs, _ = bcj2_batch(distinct, truncate=False)
+    bargs = [a.to(device) for a in bargs]
+    lane_of = torch.arange(sms) % 8
+    bargs = [a[lane_of.to(device)].contiguous() for a in bargs]
+    DF.launches["x86"] = DF.launches["bcj2"] = 0
+    enc = DF.x86_convert_batch(wide, valid, ip, encoding=True)
+    dec = DF.x86_convert_batch(enc, valid, ip, encoding=False)
+    b_out, b_ok = DF.bcj2_decode_batch(*bargs)
+    launches = dict(DF.launches)
+    enc_rows = enc.cpu().numpy()
+    res["x86_wide"] = {
+        "lanes": sms, "lane_bytes": MIB,
+        "equal_host": all(enc_rows[i].tobytes() == refs[i % 8]
+                          for i in range(sms)),
+        "roundtrip": bool(torch.equal(dec, wide))}
+    b_out = b_out.cpu()
+    res["bcj2_wide"] = {
+        "lanes": sms, "all_ok": bool(b_ok.all()),
+        "equal_input": all(b_out[i, :MIB].numpy().tobytes() == distinct[i % 8]
+                           for i in range(sms))}
+    x86_ms = best_ms(lambda: DF.x86_convert_batch(wide, valid, ip,
+                                                  encoding=True))
+    bcj2_ms = best_ms(lambda: DF.bcj2_decode_batch(*bargs))
+    x86_bytes = 2 * rows.size
+    bcj2_bytes = sum(int(bargs[k].sum()) for k in (1, 3, 5, 7)) + \
+        int(bargs[8].sum())
+    res["x86_wide"].update(ms=x86_ms, bound_ms=x86_bytes / HBM_BYTES_PER_S
+                           * 1e3)
+    res["bcj2_wide"].update(ms=bcj2_ms, bound_ms=bcj2_bytes / HBM_BYTES_PER_S
+                            * 1e3, bytes=bcj2_bytes)
+    res["launches"] = launches
+    ok_x86 = not any(m[0] == "x86" for m in res["mismatches"])
+    res["pass"] = (not res["mismatches"] and bcj2_same
+                   and res["x86_wide"]["equal_host"]
+                   and res["x86_wide"]["roundtrip"]
+                   and res["bcj2_wide"]["all_ok"]
+                   and res["bcj2_wide"]["equal_input"]
+                   and launches["x86"] > 0 and launches["bcj2"] > 0)
+    common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
+              "source": "lzma_sdk_zliblike_tpu_torch/csrc/device_filters.cu"}
+    entries = [{
+        "name": "device_filters x86 (X4)", **common,
+        "replaces": "lzma_sdk_zliblike_tpu/ops/device_filters.py:223",
+        "launches": launches["x86"], "matches_plain": ok_x86,
+        "max_abs_err": x86_err, "ms": x86_ms,
+        "plain_ms": plain_ms["x86"], "plain_batch": "5 x 4 KiB, both ways",
+        "bound_ms": res["x86_wide"]["bound_ms"]}, {
+        "name": "device_filters bcj2 (X4)", **common,
+        "replaces": "lzma_sdk_zliblike_tpu/ops/device_filters.py:340",
+        "launches": launches["bcj2"], "matches_plain": bool(bcj2_same),
+        "max_abs_err": bcj2_err, "ms": bcj2_ms,
+        "plain_ms": plain_ms["bcj2"], "plain_batch": "6 lanes of 8-10 KiB",
+        "bound_ms": res["bcj2_wide"]["bound_ms"]}]
+    return res, entries
+
+
+def one_call(data: bytes, device) -> dict:
+    """Phase 19: the one-call API on the host.  ``lzma2_compress`` of the
+    128 MiB (1 MiB dictionary and chunk, every core), then
+    ``lzma2_uncompress(device="cuda")`` of it (equal to the data, K1
+    launched); ``compress``/``uncompress`` of 8 MiB at level 5 (the stream
+    also read by Python's ``lzma`` as .lzma); a ``.lzma86`` round trip of
+    4 MiB of ``x86_like`` (the filter it chose reported);
+    ``lzma2_compress_stream``
+    of 8 MiB fed in 1 MiB pieces equal to the same fed in one piece, read
+    back by Python's ``lzma``; a device engine name refused."""
+    import lzma_sdk_zliblike_tpu_torch as T
+    from lzma_sdk_zliblike_tpu_torch import api
+    from lzma_sdk_zliblike_tpu_torch.containers import lzma86
+    from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
+    res = {}
+    t = time.perf_counter()
+    stream, prop = T.lzma2_compress(data, dict_size=MIB, chunk_size=MIB,
+                                    threads=os.cpu_count())
+    res["lzma2_compress_s"] = time.perf_counter() - t
+    G.launches = 0
+    t = time.perf_counter()
+    back = T.lzma2_uncompress(stream, prop, device=device)
+    res["lzma2_uncompress_s"] = time.perf_counter() - t
+    res["lzma2_launches"] = G.launches
+    res["lzma2_equal"] = back == data
+    del back
+    part = data[:8 * MIB]
+    t = time.perf_counter()
+    s, props = T.compress(part, level=5)
+    res["compress_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["uncompress_equal"] = T.uncompress(s, props, len(part)) == part
+    res["uncompress_s"] = time.perf_counter() - t
+    res["compress_ratio"] = len(s) / len(part)
+    res["liblzma_reads_it"] = lzma.decompress(
+        props + len(part).to_bytes(8, "little") + s,
+        format=lzma.FORMAT_ALONE) == part
+    x86 = corpus_module().x86_like(4 * MIB, seed=70)
+    t = time.perf_counter()
+    img = lzma86.encode(x86, dict_size=MIB)
+    res["lzma86_s"] = time.perf_counter() - t
+    res["lzma86_filter"] = img[0]
+    res["lzma86_equal"] = lzma86.decode(img) == x86
+    pieces = api.lzma2_compress_stream(dict_size=MIB)
+    fed = b"".join(pieces.compress(part[a:a + MIB])
+                   for a in range(0, len(part), MIB)) + pieces.flush()
+    whole = api.lzma2_compress_stream(dict_size=MIB)
+    one = whole.compress(part) + whole.flush()
+    res["stream_equal"] = fed == one
+    res["stream_liblzma_reads_it"] = lzma.decompress(
+        fed, format=lzma.FORMAT_RAW, filters=[
+            {"id": lzma.FILTER_LZMA2, "dict_size": MIB}]) == part
+    try:
+        T.compress(part[:1000], engine="tpu")
+        res["device_engine_refused"] = False
+    except T.UnsupportedError:
+        res["device_engine_refused"] = True
+    res["pass"] = (res["lzma2_equal"] and res["lzma2_launches"] > 0
+                   and res["uncompress_equal"] and res["liblzma_reads_it"]
+                   and res["lzma86_equal"]
+                   and res["stream_equal"] and res["stream_liblzma_reads_it"]
+                   and res["device_engine_refused"])
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1686,6 +2099,18 @@ def main() -> int:
         if not res["pass"]:
             failed.append(name)
 
+    # -- 17-19. X3, X4 and the one-call raw-LZMA API ----------------------
+    p17, k_x3 = checksum_device(data, device)
+    emit({"phase": "checksum_device", **p17})
+    p18, k_x4 = device_filters(device)
+    emit({"phase": "device_filters", **p18})
+    p19 = one_call(data, device)
+    emit({"phase": "one_call", **p19})
+    for name, res in (("checksum_device", p17), ("device_filters", p18),
+                      ("one_call", p19)):
+        if not res["pass"]:
+            failed.append(name)
+
     # K1's chain bound: the longest lane's bit calls on main at the cost of
     # one dependent pure-ALU bit call that phase 7 measured
     ns_per_bit_call = lane_notr_ns(p7["P1"])
@@ -1750,7 +2175,7 @@ def main() -> int:
         "name": "compact_probe (P2)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/compact_probe.cu",
         "replaces": "tools/compact_probe.py:69", **k_p2,
-        "bound_by": "operations", "library_ms": None}]})
+        "bound_by": "operations", "library_ms": None}, k_x3, *k_x4]})
     print(smi[0])
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

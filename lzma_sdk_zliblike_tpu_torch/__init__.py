@@ -12,9 +12,14 @@ reads and writes .xz images, its blocks decoded through the same engines.
 ``decode_groups_distributed`` / ``encode_groups_distributed`` deal the
 groups over the ranks of a ``torch.distributed`` process group, K1 on each
 rank's card (``parallel/distributed.py``).  ``device="cpu"`` runs the kernels' plain PyTorch versions instead.
+The zlib-like one-calls ``compress``/``uncompress`` (raw LZMA, ``.lzma`` and
+``.lzma86`` in ``containers/``, ``cli/lzma_util.py``) and ``lzma2_compress``
+run on the host.  ``ops/checksum.py`` (X3) computes CRC32/CRC64 and
+``ops/device_filters.py`` (X4) the batched branch and delta filters on the
+card.
 """
 
-from .api import lzma2_uncompress
+from .api import compress, lzma2_compress, lzma2_uncompress, uncompress
 from .parallel.device_encode import (encode_lzma2_device,
                                      encode_lzma2_device_coded,
                                      encode_lzma2_hybrid)
@@ -26,7 +31,8 @@ from .utils.errors import (ArchiveError, CrcError, DataError, InputEofError,
                            LzmaError, ParamError, ProgressAborted,
                            UnsupportedError)
 
-__all__ = ["lzma2_uncompress", "encode_lzma2_device_coded",
+__all__ = ["compress", "uncompress", "lzma2_compress", "lzma2_uncompress",
+           "encode_lzma2_device_coded",
            "encode_lzma2_hybrid", "encode_lzma2_device",
            "decode_lzma2_mt", "decode_lzma2_hybrid",
            "decode_groups_distributed", "encode_groups_distributed",

@@ -1,16 +1,24 @@
-"""Zlib-like one-call API of the PyTorch/CUDA port: LZMA2 decode.
+"""Zlib-like one-call API of the PyTorch/CUDA port.
 
-The counterpart of the JAX package's ``lzma2_uncompress`` (``api.py:98-126``)
-with the port's three engines: the group-decode kernel K1 alone under the
-budget-sized batch shape (``"device"``), host threads and K1 on one group
-queue (``"hybrid"``), and host threads alone (``"host"``).
+The counterpart of the JAX package's ``api.py``.  The reference exposes it
+as ``LzmaCompress``/``LzmaUncompress`` (``LzmaLib.h:98-129``): flat-buffer
+one-call raw LZMA with the 5 props bytes carried out-of-band
+(``compress``/``uncompress``, host only: one stream has no groups for a
+device to share), plus LZMA2 one-calls whose dict-reset groups are the
+device's unit.  ``lzma2_compress`` encodes on the host (one thread, or
+``threads`` over the groups), ``lzma2_compress_stream`` / ``_file`` in
+O(dict) memory; ``lzma2_uncompress`` decodes with the port's three engines:
+the group-decode kernel K1 alone under the budget-sized batch shape
+(``"device"``), host threads and K1 on one group queue (``"hybrid"``), and
+host threads alone (``"host"``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .utils.errors import UnsupportedError
+from .models.lzma.spec import LzmaProps
+from .utils.errors import ProgressAborted, UnsupportedError
 
 ENGINES = ("device", "hybrid", "host")
 
@@ -25,6 +33,137 @@ def check_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise UnsupportedError(f"unsupported device {device}")
     return device
+
+
+def compress(data: bytes, *, level: int = 5, dict_size: int | None = None,
+             lc: int = 3, lp: int = 0, pb: int = 2, effort: int | None = None,
+             engine: str = "auto") -> tuple[bytes, bytes]:
+    """Compress to raw LZMA; returns ``(stream, props_bytes)``.
+
+    Mirrors ``LzmaCompress`` (``LzmaLib.h:98-112``): the props travel
+    out-of-band.  ``effort`` defaults from ``level`` (``default_effort``).
+    ``engine``: ``"auto"``/``"native"`` or ``"python"`` (``engine.py``); a
+    device engine name raises UnsupportedError."""
+    from .engine import lzma_raw_encode
+    if dict_size is None:
+        dict_size = default_dict_size(level)
+    if effort is None:
+        effort = default_effort(level)
+    props = LzmaProps(lc=lc, lp=lp, pb=pb, dict_size=dict_size)
+    return (lzma_raw_encode(data, props, effort=effort, engine=engine),
+            props.to_bytes())
+
+
+def uncompress(stream: bytes, props_bytes: bytes, unpack_size: int,
+               *, engine: str = "auto") -> bytes:
+    """Decompress raw LZMA (``LzmaUncompress``, ``LzmaLib.h:114-129``);
+    engines as for ``compress``."""
+    from .engine import lzma_raw_decode
+    return lzma_raw_decode(stream, LzmaProps.from_bytes(props_bytes),
+                           unpack_size, engine=engine)
+
+
+def lzma2_compress(data: bytes, *, level: int = 5,
+                   dict_size: int | None = None,
+                   chunk_size: int | None = None,
+                   threads: int | None = None,
+                   effort: int | None = None,
+                   progress=None,
+                   props=None,
+                   engine: str = "auto") -> tuple[bytes, int]:
+    """Compress to a raw LZMA2 stream on the host; returns ``(stream,
+    dict_prop)``.
+
+    ``threads`` (other than None and 1, with the native engine): the
+    dict-reset groups encode on a thread pool
+    (``parallel/host_pool.encode_lzma2_mt``, the MtCoder equivalent; the
+    stream is the same at any thread count), with ``progress(done_bytes,
+    out_bytes)`` after each group (False aborts with ProgressAborted).
+    ``effort``: <= 9 greedy/lazy, 10+ BT4 + optimal parse (defaults from
+    ``level``, ``LzmaEnc.c:53-74``).  ``props``: a ``utils.props.EncProps``;
+    explicit keywords override its fields.  ``engine``: ``"auto"`` /
+    ``"native"`` or ``"python"`` (``framing.encode``); a device engine name
+    raises UnsupportedError (the device encoders are
+    ``encode_lzma2_device_coded`` and its siblings)."""
+    from .engine import check_engine
+    from .models.lzma2 import framing
+    check_engine(engine)
+    if props is not None:
+        p = props.normalize()
+        dict_size = p.dict_size if dict_size is None else dict_size
+        chunk_size = p.chunk_size if chunk_size is None else chunk_size
+        effort = p.effort if effort is None else effort
+        threads = p.num_block_threads if threads is None else threads
+    if dict_size is None:
+        dict_size = default_dict_size(level)
+    if effort is None:
+        effort = default_effort(level)
+    if threads is not None and threads != 1 and engine != "python":
+        from .parallel.host_pool import encode_lzma2_mt
+        return encode_lzma2_mt(data, dict_size=dict_size,
+                               chunk_size=chunk_size or (1 << 20),
+                               threads=threads, effort=effort,
+                               progress=progress)
+    return framing.encode(data, dict_size=dict_size, chunk_size=chunk_size,
+                          effort=effort, engine=engine)
+
+
+def lzma2_compress_stream(*, level: int = 5, dict_size: int | None = None,
+                          lc: int = 3, lp: int = 0, pb: int = 2,
+                          effort: int | None = None):
+    """An incremental LZMA2 encoder in O(dict) memory
+    (``native.Lzma2StreamEncoder``): ``compress(bytes) -> bytes``,
+    ``flush() -> bytes`` and ``dict_prop``.  The streaming counterpart of
+    the reference's ``LzmaEnc_Encode2`` sliding-window loop
+    (``LzmaEnc.c:2154-2184``, ``LzFind.c:57-121``)."""
+    from .native import Lzma2StreamEncoder
+    if dict_size is None:
+        dict_size = default_dict_size(level)
+    if effort is None:
+        effort = default_effort(level)
+    return Lzma2StreamEncoder(dict_size, lc=lc, lp=lp, pb=pb, effort=effort)
+
+
+def lzma2_compress_file(src_path: str, dst_path: str, *, level: int = 5,
+                        dict_size: int | None = None,
+                        effort: int | None = None,
+                        read_size: int = 1 << 20,
+                        progress=None) -> int:
+    """File-to-file LZMA2 encode in O(dict) memory; returns the dict prop.
+
+    The output is the raw LZMA2 stream; only the sliding window and one
+    read buffer are resident.  ``progress(done_bytes, out_bytes)`` after
+    each read; False aborts with ProgressAborted."""
+    enc = lzma2_compress_stream(level=level, dict_size=dict_size,
+                                effort=effort)
+    done = 0
+    with open(src_path, "rb") as fin, open(dst_path, "wb") as fout:
+        while True:
+            piece = fin.read(read_size)
+            if not piece:
+                break
+            fout.write(enc.compress(piece))
+            done += len(piece)
+            if progress is not None and progress(done, fout.tell()) is False:
+                raise ProgressAborted()
+        fout.write(enc.flush())
+    return enc.dict_prop
+
+
+def default_dict_size(level: int) -> int:
+    """Level -> dictSize table of the reference (``LzmaLib.h:44-52``)."""
+    table = {0: 1 << 14, 1: 1 << 16, 2: 1 << 18, 3: 1 << 20,
+             4: 1 << 22, 5: 1 << 24, 6: 1 << 25}
+    return table.get(level, 1 << 26)
+
+
+def default_effort(level: int) -> int:
+    """Level -> parse, as ``LzmaEncProps_Normalize`` (``LzmaEnc.c:53-74``):
+    level < 5 the fast lazy parse, level >= 5 BT4 + optimal parse, level >=
+    9 a deeper BT walk."""
+    if level >= 9:
+        return 11
+    return 10 if level >= 5 else 9
 
 
 def lzma2_uncompress(stream: bytes, dict_prop: int, *, engine="device",

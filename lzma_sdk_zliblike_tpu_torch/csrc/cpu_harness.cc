@@ -1,7 +1,9 @@
 // Test-only CPU build of the per-lane code that group_decode.cu (K1) and
-// range_encode.cu (K2) run on the GPU, and of the per-element bit call of
-// the probes v12_probe.cu (P1) and compact_probe.cu (P2): the same
-// lzma_lane.cuh, lzma_enc_lane.cuh and probe_lane.cuh, compiled by g++,
+// range_encode.cu (K2) run on the GPU, of the per-element bit call of
+// the probes v12_probe.cu (P1) and compact_probe.cu (P2), of the block step
+// and tree join of checksum.cu (X3) and of the lane machines of
+// device_filters.cu (X4): the same lzma_lane.cuh, lzma_enc_lane.cuh,
+// probe_lane.cuh, checksum_lane.cuh and filters_lane.cuh, compiled by g++,
 // looping over lanes or elements on the host (and, for K1 and K2, over the
 // threads of a block).  The tests/test_torch_*.py
 // files build it and hold it against the plain versions in ops/ and tools/;
@@ -13,6 +15,8 @@
 
 #include <vector>
 
+#include "checksum_lane.cuh"
+#include "filters_lane.cuh"
 #include "lzma_enc_lane.cuh"
 #include "lzma_lane.cuh"
 #include "probe_lane.cuh"
@@ -168,5 +172,61 @@ extern "C" int lzt_compact_call_cpu(void* rng, void* code, void* st, const void*
 extern "C" int lzt_compact_code0_cpu(const void* i, void* out, int seed, int n) {
   for (int k = 0; k < n; ++k)
     ((int32_t*)out)[k] = lzt::probe::compact_code0(((const int32_t*)i)[k], seed);
+  return 0;
+}
+
+// X3's block states (checksum.cu's first launch): `lanes` blocks of 16
+// uint32 words, width 32 or 64, one uint64 state per block.
+extern "C" int lzt_crc_blocks_cpu(const void* words, long long lanes, int width,
+                                  void* states) {
+  using namespace lzt::crc;
+  if (width != 32 && width != 64) return 1;
+  for (long long lane = 0; lane < lanes; ++lane)
+    ((uint64_t*)states)[lane] = block_state((const uint32_t*)words + lane * kBlockWords,
+                                            width == 32 ? kPoly32 : kPoly64);
+  return 0;
+}
+
+// X3's tree combine (checksum.cu's combine launches, every level): n states
+// (a power of two) joined level by level with mats (levels x width
+// columns); the result in *out.
+extern "C" int lzt_crc_combine_cpu(const void* states, long long n, const void* mats,
+                                   int width, void* out) {
+  std::vector<uint64_t> s((const uint64_t*)states, (const uint64_t*)states + n);
+  for (int lv = 0; n > 1; ++lv, n /= 2)
+    for (long long i = 0; i < n / 2; ++i)
+      s[i] = lzt::crc::join((const uint64_t*)mats + lv * width, s[2 * i], s[2 * i + 1],
+                            width);
+  *(uint64_t*)out = s[0];
+  return 0;
+}
+
+// X4's x86 BCJ (device_filters.cu) over n_lanes rows of `row` bytes of
+// `out`, converted in place; valid int32 and ip int64 per lane.
+extern "C" int lzt_x86_batch_cpu(void* out, long long row, const void* valid,
+                                 const void* ip, int n_lanes, int encoding) {
+  for (int lane = 0; lane < n_lanes; ++lane)
+    lzt::filt::x86_lane((uint8_t*)out + lane * row, ((const int32_t*)valid)[lane],
+                        (uint32_t)((const int64_t*)ip)[lane], encoding != 0);
+  return 0;
+}
+
+// X4's BCJ2 decode (device_filters.cu), same arguments but the stream.
+extern "C" int lzt_bcj2_batch_cpu(const void* main, int main_w, const void* main_len,
+                                  const void* call, int call_w, const void* call_len,
+                                  const void* jump, int jump_w, const void* jump_len,
+                                  const void* rc, int rc_w, const void* rc_len,
+                                  const void* out_size, void* out, int out_cap, void* ok,
+                                  int n_lanes) {
+  using namespace lzt::filt;
+  uint16_t probs[kBcj2Probs];
+  for (long long s = 0; s < n_lanes; ++s) {
+    Bcj2Lane L = {(const uint8_t*)main + s * main_w, main_w, ((const int32_t*)main_len)[s],
+                  (const uint8_t*)call + s * call_w, call_w, ((const int32_t*)call_len)[s],
+                  (const uint8_t*)jump + s * jump_w, jump_w, ((const int32_t*)jump_len)[s],
+                  (const uint8_t*)rc + s * rc_w,     rc_w,   ((const int32_t*)rc_len)[s],
+                  ((const int32_t*)out_size)[s]};
+    ((int32_t*)ok)[s] = bcj2_lane(L, probs, (uint8_t*)out + s * out_cap, out_cap);
+  }
   return 0;
 }

@@ -13,7 +13,8 @@ Chunk grammar (as documented at ``Lzma2Dec.c:14-26``):
 Framing-level facts that make LZMA2 the device data-parallel unit:
 chunks with dict reset start an independently decodable *group*; the chunk
 scanner below splits a stream into such groups without decoding any payload,
-which is what the lane-parallel device decoder consumes.
+which is what the lane-parallel device decoder consumes.  ``encode`` writes
+such streams on the host (the native or the pure-Python encoder).
 
 The dict-size prop byte maps 40 values k → ``(2 | (k & 1)) << (k // 2 + 11)``
 (``Lzma2Enc.c:423-432`` / ``Lzma2Dec.c:61-73``).
@@ -34,6 +35,12 @@ MODE_NOTHING = 0
 MODE_STATE = 1
 MODE_STATE_PROPS = 2
 MODE_STATE_PROPS_DIC = 3
+
+CHUNK_UNPACK_MAX = 1 << 21          # <= 2 MB unpacked per chunk
+CHUNK_PACK_MAX = 1 << 16            # <= 64 KB packed per chunk
+# default dict-reset group size of encode (the python engine cuts each group
+# into 48 KiB sub-chunks; copy chunks cover what does not shrink)
+DEFAULT_SUBCHUNK = 1 << 20
 
 
 def encode_dict_prop(dict_size: int) -> int:
@@ -182,3 +189,113 @@ def decode_chunks(stream: bytes, chunks: list[Chunk], *,
         if src_end != c.data_off + c.pack_size:
             raise DataError("LZMA2 chunk consumed wrong pack size")
     return bytes(out)
+
+
+# --------------------------------------------------------------------------
+# encode
+# --------------------------------------------------------------------------
+
+def _chunk_header(is_lzma: bool, mode: int, unpack: int, pack: int,
+                  props: LzmaProps | None, reset_dic: bool) -> bytes:
+    if not is_lzma:
+        return bytes([CTRL_COPY_RESET_DIC if reset_dic else CTRL_COPY_NO_RESET,
+                      (unpack - 1) >> 8, (unpack - 1) & 0xFF])
+    u = unpack - 1
+    hdr = bytearray([0x80 | (mode << 5) | (u >> 16), (u >> 8) & 0xFF, u & 0xFF,
+                     (pack - 1) >> 8, (pack - 1) & 0xFF])
+    if mode >= MODE_STATE_PROPS:
+        hdr.append(props.to_bytes()[0])
+    return bytes(hdr)
+
+
+def encode(data: bytes, *, dict_size: int = 1 << 24,
+           chunk_size: int | None = None,
+           parallel_groups: bool = True,
+           lc: int = 3, lp: int = 0, pb: int = 2,
+           effort: int = 9,
+           engine: str = "auto") -> tuple[bytes, int]:
+    """Encode bytes to a raw LZMA2 stream on the host; returns ``(stream,
+    dict_prop)``.
+
+    ``parallel_groups=True`` resets the dictionary every ``chunk_size``
+    bytes, so each group decodes on its own (the device decoder's unit);
+    with False only the first chunk resets (the reference's single stream,
+    better ratio).  ``engine``: ``"auto"`` / ``"native"`` the port's C++
+    encoder, ``"python"`` the pure-Python one (``encoder_ref``, a lazy parse
+    that ignores ``effort``), each byte-identical to the JAX package's of
+    that engine; any other name raises UnsupportedError (``engine.py``).
+    """
+    from ...engine import check_engine
+    if check_engine(engine) != "python":
+        from ... import native
+        return native.lzma2_encode(data, dict_size, chunk_size,
+                                   parallel_groups, lc=lc, lp=lp, pb=pb,
+                                   effort=effort)
+
+    prop_k = encode_dict_prop(dict_size)
+    dict_size = decode_dict_prop(prop_k)
+    chunk_size = chunk_size or DEFAULT_SUBCHUNK
+    if chunk_size > CHUNK_UNPACK_MAX:
+        raise ParamError("chunk_size > 2 MB")
+    props = LzmaProps(lc=lc, lp=lp, pb=pb, dict_size=dict_size)
+
+    from ..lzma.encoder_ref import LzmaEncoder
+    enc = LzmaEncoder(props)
+    out = bytearray()
+    n = len(data)
+    # the packed size field is 16-bit, so encode in sub-chunks whose packed
+    # output stays < 64 KB; state continues across sub-chunks within a group
+    # (the reference's subblock loop, Lzma2Enc.c:72-164)
+    sub_unpack = min(chunk_size, 48 << 10)
+    group_start = 0
+    props_sent = False
+    while group_start < n:
+        group_end = min(group_start + chunk_size, n) if parallel_groups else n
+        # each dict-reset group is an independent slice: no finder state or
+        # lookahead crosses group boundaries
+        gdata = data[group_start:group_end]
+        gn = group_end - group_start
+        enc.reset_state()
+        first_of_group = True
+        need_state_reset = True  # fresh group: state must be (re)declared
+        pos = 0
+        while pos < gn:
+            end = min(pos + sub_unpack, gn)
+            unpack = end - pos
+            snap = enc.save_state()
+            body = enc.encode_segment(gdata, pos, end, dic_start=0)
+            if len(body) < min(unpack, CHUNK_PACK_MAX):
+                if first_of_group:
+                    mode = MODE_STATE_PROPS_DIC
+                elif need_state_reset:
+                    mode = MODE_STATE_PROPS if not props_sent else MODE_STATE
+                else:
+                    mode = MODE_NOTHING
+                props_sent = True
+                out += _chunk_header(True, mode, unpack, len(body), props,
+                                     first_of_group)
+                out += body
+                need_state_reset = False
+            else:
+                # incompressible: roll the model back and emit copy chunks
+                # (LzmaEnc_RestoreState + copy-chunk fallback,
+                #  Lzma2Enc.c:87-164)
+                enc.restore_state(snap)
+                cpos = pos
+                while cpos < end:
+                    cend = min(cpos + CHUNK_PACK_MAX, end)
+                    out += _chunk_header(False, 0, cend - cpos, cend - cpos,
+                                         None, first_of_group)
+                    out += gdata[cpos:cend]
+                    first_of_group = False
+                    cpos = cend
+                # the next LZMA chunk carries a state reset (the grammar
+                # requires one after a copy chunk) and the decoder re-inits
+                # probs, state and reps: the encoder must match
+                enc.reset_state()
+                need_state_reset = True
+            first_of_group = False
+            pos = end
+        group_start = group_end
+    out.append(CTRL_EOS)
+    return bytes(out), prop_k

@@ -5,7 +5,10 @@ needs: ``lzt_lzma2_group_ops`` (the fast parse of one dict-reset group,
 exporting op records for the range-encode kernel), ``lzt_lzma2_encode`` and
 ``lzt_lzma2_decode`` (the host LZMA2 encoder and decoder),
 ``lzt_lzma2_encode_ext`` (the host encoder drawing its match candidates from
-the device match finder X2) and ``lzt_crc64`` (the xz container's CRC64).
+the device match finder X2), ``lzt_lzma_encode`` and ``lzt_lzma_decode``
+(raw LZMA, one stream), ``lzt_stream_enc_*`` (the bounded-memory streaming
+LZMA2 encoder, ``Lzma2StreamEncoder``) and ``lzt_crc64`` (the xz
+container's CRC64).
 The source is ``csrc/host/lzt_codec.cc``, one self-contained translation
 unit.  At first use it is built with g++ into
 ``build/torch_host/liblzt_host_<hash>.so`` (the hash covers the source and
@@ -25,7 +28,8 @@ import threading
 
 import numpy as np
 
-from .utils.errors import ParamError, raise_for_sres
+from .models.lzma.spec import LzmaProps
+from .utils.errors import DataError, ParamError, raise_for_sres
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "host", "lzt_codec.cc")
@@ -91,6 +95,32 @@ def _bind(lib: ctypes.CDLL) -> None:
         u8p, ctypes.POINTER(ctypes.c_size_t),
         ctypes.c_int,                                     # dict prop
     ]
+    lib.lzt_lzma_decode.restype = ctypes.c_int
+    lib.lzt_lzma_decode.argtypes = [
+        u8p, ctypes.c_size_t,
+        u8p, ctypes.POINTER(ctypes.c_size_t),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,  # lc lp pb dict
+        ctypes.c_int,                                     # has_size
+    ]
+    lib.lzt_lzma_encode.restype = ctypes.c_int
+    lib.lzt_lzma_encode.argtypes = [
+        u8p, ctypes.c_size_t,
+        u8p, ctypes.POINTER(ctypes.c_size_t),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,  # lc lp pb dict
+        ctypes.c_int, ctypes.c_int,                       # end mark, effort
+    ]
+    lib.lzt_stream_enc_new.restype = ctypes.c_void_p
+    lib.lzt_stream_enc_new.argtypes = [
+        ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.lzt_stream_enc_feed.restype = None
+    lib.lzt_stream_enc_feed.argtypes = [ctypes.c_void_p, u8p, ctypes.c_size_t]
+    lib.lzt_stream_enc_finish.restype = None
+    lib.lzt_stream_enc_finish.argtypes = [ctypes.c_void_p]
+    lib.lzt_stream_enc_drain.restype = ctypes.c_size_t
+    lib.lzt_stream_enc_drain.argtypes = [ctypes.c_void_p, u8p, ctypes.c_size_t]
+    lib.lzt_stream_enc_free.restype = None
+    lib.lzt_stream_enc_free.argtypes = [ctypes.c_void_p]
     lib.lzt_crc64.restype = ctypes.c_uint64
     lib.lzt_crc64.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint64]
     lib.lzt_lzma2_group_ops.restype = ctypes.c_int
@@ -104,6 +134,107 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _as_u8p(b: bytes):
     return ctypes.cast(ctypes.c_char_p(bytes(b)), ctypes.POINTER(ctypes.c_uint8))
+
+
+def lzma_decode(src: bytes, props: LzmaProps, unpack_size: int | None) -> bytes:
+    """Decode one raw LZMA stream with ``props``.  ``unpack_size`` None means
+    the stream ends with an end marker; otherwise the output must reach it
+    (DataError if not)."""
+    lib = _load()
+    # a bounded first buffer even when the declared size is huge: a corrupt
+    # header must give DataError, not a giant allocation
+    want = unpack_size
+    cap = min(want if want is not None else max(1 << 16, len(src) * 64),
+              max(1 << 26, len(src) * 64))
+    while True:
+        try:
+            dst = ctypes.create_string_buffer(max(cap, 1))
+        except MemoryError:
+            raise_for_sres(2)  # SZ_ERROR_MEM
+        n = ctypes.c_size_t(cap)
+        r = lib.lzt_lzma_decode(
+            _as_u8p(src), len(src),
+            ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)), ctypes.byref(n),
+            props.lc, props.lp, props.pb, props.dict_size,
+            1 if (want is not None and want <= cap) else 0)
+        if r == 7 and (want is None or cap < want):
+            cap *= 4
+            continue
+        raise_for_sres(r)
+        out = dst.raw[:n.value]
+        if want is not None and len(out) != want:
+            raise DataError("declared uncompressed size not reached")
+        return out
+
+
+def lzma_encode(data: bytes, props: LzmaProps, write_end_mark: bool = False,
+                effort: int = 9) -> bytes:
+    """One raw LZMA stream of ``data`` with ``props`` (no header);
+    ``effort`` 1-9 is the lazy parse's depth, 10 and up the optimal parse."""
+    lib = _load()
+    cap = len(data) + len(data) // 2 + 4096
+    dst = ctypes.create_string_buffer(cap)
+    n = ctypes.c_size_t(cap)
+    r = lib.lzt_lzma_encode(
+        _as_u8p(data), len(data),
+        ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)), ctypes.byref(n),
+        props.lc, props.lp, props.pb, props.dict_size,
+        1 if write_end_mark else 0, effort)
+    raise_for_sres(r)
+    return dst.raw[:n.value]
+
+
+class Lzma2StreamEncoder:
+    """Incremental LZMA2 encoder in O(dict) memory (a native sliding window).
+
+    The compressobj-style counterpart of the reference's streaming encode
+    (``LzmaEnc_Encode2``'s block loop over a MoveBlock window,
+    ``LzmaEnc.c:2154-2184`` + ``LzFind.c:57-121``): ``compress()`` takes
+    pieces of any size and returns what is ready, ``flush()`` the rest and
+    the end byte.  The stream does not depend on how the input is cut.
+    """
+
+    def __init__(self, dict_size: int = 1 << 24, *, lc: int = 3,
+                 lp: int = 0, pb: int = 2, effort: int = 9):
+        self._lib = _load()
+        prop = ctypes.c_int(0)
+        self._h = self._lib.lzt_stream_enc_new(dict_size, lc, lp, pb, effort,
+                                               ctypes.byref(prop))
+        if not self._h:
+            raise ParamError(f"bad stream encoder params lc/lp/pb "
+                             f"{lc}/{lp}/{pb}")
+        self.dict_prop = prop.value
+        self._buf = (ctypes.c_uint8 * (1 << 20))()
+
+    def _drain(self) -> bytes:
+        out = bytearray()
+        while True:
+            n = self._lib.lzt_stream_enc_drain(self._h, self._buf,
+                                               len(self._buf))
+            if not n:
+                return bytes(out)
+            out += bytes(self._buf[:n])
+
+    def compress(self, data) -> bytes:
+        if self._h is None:
+            raise ValueError("compress() after flush()")
+        data = bytes(data)
+        self._lib.lzt_stream_enc_feed(self._h, _as_u8p(data), len(data))
+        return self._drain()
+
+    def flush(self) -> bytes:
+        if self._h is None:
+            raise ValueError("flush() called twice")
+        self._lib.lzt_stream_enc_finish(self._h)
+        out = self._drain()
+        self._lib.lzt_stream_enc_free(self._h)
+        self._h = None
+        return out
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.lzt_stream_enc_free(self._h)
+            self._h = None
 
 
 def lzma2_encode(data: bytes, dict_size: int, chunk_size: int | None,

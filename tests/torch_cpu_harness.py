@@ -2,7 +2,8 @@
 
 The harness compiles the kernels' own per-lane sources (``lzma_lane.cuh``
 for K1, ``lzma_enc_lane.cuh`` for K2, ``probe_lane.cuh`` for the probes P1
-and P2) for the host, so the tests can run the
+and P2, ``checksum_lane.cuh`` for X3, ``filters_lane.cuh`` for X4) for the
+host, so the tests can run the
 code the GPU runs.  It goes to ``build/torch_kernels_cpu/`` under a hash of
 its sources and is shared by the test files that load this module by path
 (a foreign package named ``tests`` may shadow this directory).
@@ -19,7 +20,7 @@ import subprocess
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "lzma_sdk_zliblike_tpu_torch", "csrc")
 SOURCES = ("cpu_harness.cc", "lzma_lane.cuh", "lzma_enc_lane.cuh",
-           "probe_lane.cuh")
+           "probe_lane.cuh", "checksum_lane.cuh", "filters_lane.cuh")
 
 
 def build() -> ctypes.CDLL | None:
