@@ -136,11 +136,13 @@ Phases, each printed as one JSON line:
    hosts' CRCs on the host clock; bound: the bytes at 3.35 TB/s.
 18. device_filters: X4 (``ops/device_filters.py``, ``csrc/device_filters.cu``
    for x86 and BCJ2): the eight functions on the card against their plain
-   versions on CPU copies and the host's ``ops/filters.py`` on the salted
-   batch of tests/test_device_filters.py, round trips, BCJ2 with two
-   truncated rc lanes (``ok`` false); then one lane per SM of 1 MiB of
-   ``x86_like``: x86 encode (equal to the host's) and decode, BCJ2 decode of
-   ``bcj2_encode``'s streams (equal to the input), counted and timed.
+   versions on CPU copies and the host's ``ops/filters.py`` on the batches
+   of tests/torch_filter_batches.py (salted, x86 edge and past-the-row
+   lanes, BCJ2 with truncated streams and lengths past the rows), round
+   trips; then one lane per SM of 1 MiB of ``x86_like``: x86 encode and
+   decode and BCJ2 decode of ``bcj2_encode``'s streams, counted and timed,
+   every row equal to the plain version's on CPU copies of its lane (three
+   worker processes), to the host's encode and to the input.
 19. one_call: ``lzma2_compress`` of the 128 MiB (1 MiB dictionary and
    chunk, every core) and ``lzma2_uncompress`` of it on the card (K1
    launched), ``compress``/``uncompress`` of 8 MiB at level 5 (read back by
@@ -1593,8 +1595,6 @@ def checksum_device(data: bytes, device) -> tuple[dict, dict]:
             kern_c = C.crc_combine(kern, width)
             kern = kern.cpu()
             bad = kern != plain
-            res["mismatched_states"] = res.get("mismatched_states", 0) + \
-                int(bad.sum()) + int(kern_c != plain_c)
             err = max([err, abs(kern_c - plain_c)] + [
                 abs((a & M64) - (b & M64)) for a, b in
                 zip(kern[bad].tolist(), plain[bad].tolist())])
@@ -1637,207 +1637,131 @@ def checksum_device(data: bytes, device) -> tuple[dict, dict]:
     return res, entry
 
 
-def mk_filter_batch(seed, S=5, L=4096):
-    """tests/test_device_filters.py's salted batch (``_mk_batch``), rebuilt:
-    every converter's opcodes, x86 clusters for the prev-mask heuristic,
-    lanes of full, short, 8-byte and empty ``valid``."""
-    random_bytes = corpus_module().random_bytes
-    rng = np.random.default_rng(seed)
-    data = np.frombuffer(random_bytes(S * L, seed=seed), np.uint8).reshape(
-        S, L).copy()
-    for s in range(S):
-        for _ in range(40):
-            off = int(rng.integers(0, L - 4)) & ~3
-            data[s, off + 3] = 0xEB
-            off = int(rng.integers(0, L - 4)) & ~3
-            data[s, off] = 0x48
-            data[s, off + 3] |= 1
-            off = int(rng.integers(0, L - 4)) & ~3
-            data[s, off] = 0x40
-            data[s, off + 1] &= 0x3F
-            off = int(rng.integers(0, L - 4)) & ~1
-            data[s, off + 1] = 0xF0 | (data[s, off + 1] & 7)
-            data[s, off + 3] = 0xF8 | (data[s, off + 3] & 7)
-            off = int(rng.integers(0, (L - 16) // 16)) * 16
-            data[s, off] = 0x16
-            data[s, off + 1] &= 0x3F
-            data[s, off + 2] &= 0xFE
-            data[s, off + 5] = (data[s, off + 5] & 0xC3) | 0x14
-            off = int(rng.integers(0, L - 12))
-            data[s, off] = 0xE8
-            data[s, off + 4] = 0x00
-            off = int(rng.integers(0, L - 12))
-            data[s, off] = 0xE9
-            data[s, off + 4] = 0xFF
-            off = int(rng.integers(0, L - 14))
-            data[s, off] = 0xE8
-            data[s, off + 2] = 0xE8
-            data[s, off + 6] = 0xFF
-            off = int(rng.integers(0, L - 14))
-            data[s, off] = 0xE8
-            data[s, off + 1] = 0xE8
-            data[s, off + 2] = 0xE8
-            data[s, off + 5] = 0x00
-            data[s, off + 6] = 0x00
-    valid = np.array([L, L - 4, L - 128, 8, 0][:S], np.int32)
-    ip = np.array([0, 4096, 12345 & ~3, 0, 0][:S], np.uint32)
-    return data, valid, ip
+def filter_batches():
+    """tests/torch_filter_batches.py, the batches of the X4 tests, loaded by
+    path like the corpus."""
+    spec = importlib.util.spec_from_file_location(
+        "lzt_filter_batches",
+        os.path.join(REPO, "tests", "torch_filter_batches.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def bcj2_batch(datas, truncate: bool):
-    """BCJ2 streams of ``datas`` (``ops/filters.bcj2_encode``) padded into a
-    batch; with ``truncate`` two more lanes copy lane 0 with its rc stream
-    cut to half and to 3 bytes (both must give ok=False).  Returns (args of
-    ``bcj2_decode_batch`` as CPU tensors, expected ok)."""
+def plain_job(name: str, args: list, kw: dict) -> tuple:
+    """``ops/device_filters.<name>`` on CPU tensors of the numpy ``args``,
+    run in a worker process of one thread: (its result as numpy, ms)."""
     import torch
-    from lzma_sdk_zliblike_tpu_torch.ops import filters as F
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        lanes = list(pool.map(F.bcj2_encode, datas))
-    sizes = [len(d) for d in datas]
-    ok = [True] * len(datas)
-    if truncate:
-        m, c, j, r = lanes[0]
-        lanes += [(m, c, j, r[:len(r) // 2]), (m, c, j, r[:3])]
-        sizes += [sizes[0]] * 2
-        ok += [False, False]
-    args = []
-    for k in range(4):
-        bufs = [t[k] for t in lanes]
-        cap = max(8, -(-max(len(b) for b in bufs) // 4) * 4)
-        arr = np.zeros((len(bufs), cap), np.uint8)
-        for i, b in enumerate(bufs):
-            arr[i, :len(b)] = np.frombuffer(b, np.uint8)
-        args += [torch.from_numpy(arr),
-                 torch.tensor([len(b) for b in bufs], dtype=torch.int32)]
-    return args + [torch.tensor(sizes, dtype=torch.int32)], ok
+    from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
+    torch.set_num_threads(1)
+    args = [torch.from_numpy(a) for a in args]
+    t = time.perf_counter()
+    out = getattr(DF, name)(*args, **kw)
+    ms = (time.perf_counter() - t) * 1e3
+    if isinstance(out, tuple):
+        return [o.numpy() for o in out], ms
+    return out.numpy(), ms
+
+
+def max_err(a, b) -> int:
+    """Largest absolute difference of two equal-shaped integer arrays."""
+    if a.size == 0:
+        return 0
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
 
 
 def device_filters(device) -> tuple[dict, list]:
     """Phase 18: X4 (``ops/device_filters.py``).  Each of the eight
     functions on the card against its plain version on CPU copies
     (tolerance 0) and the host's ``ops/filters.py`` per lane, on the salted
-    batch at both directions, with encode then decode round-tripping; delta
-    at distances 1, 4 and 255.  BCJ2 on the JAX test's salted lanes plus two
-    with a truncated rc stream: ``ok`` flag for flag and ``out`` on every ok
-    lane equal to the plain version's, each ok lane equal to its original.
-    Then the wide batches, one lane per SM of 1 MiB of ``x86_like`` (8
-    distinct lanes, repeated): x86 encode on the card equal per lane to the
-    host's ``x86_convert``, decode giving the input back, and BCJ2 decode of
-    its ``bcj2_encode`` streams equal to the input, with the launch counts
-    set to 0 just before; each kernel timed by CUDA events on them (best of
-    3 after a warm-up), bound by its bytes.  Returns the phase line and the
-    two X4 entries of the kernels line."""
+    batch of tests/torch_filter_batches.py at both directions, with encode
+    then decode round-tripping; delta at distances 1, 4 and 255; x86 also
+    on the batch's edge and past-the-row lanes.  BCJ2 on the corpus lanes
+    and the six edge lanes (truncated rc, call, jump and main streams, a
+    short out_size), on the past-the-row lanes and on main streams that end
+    on a site in their rows' last byte: ``ok`` flag for flag and ``out`` on
+    every ok lane equal to the plain version's, the corpus lanes
+    equal to their originals.  Then the wide batches, one lane per SM of 1
+    MiB of ``x86_like`` (8 distinct lanes, repeated): x86 encode and decode
+    and BCJ2 decode of ``bcj2_encode``'s streams, with the launch counts set
+    to 0 just before; every row equal to the plain version's on CPU copies
+    of its distinct lane (run in three worker processes while the rest of
+    the phase runs; the decode's input is the host's encode, which must
+    equal the kernel's), to the host's ``x86_convert`` and to the input;
+    each kernel timed by CUDA events on them (best of 3 after a warm-up),
+    bound by its bytes.  Returns the phase line and the two X4 entries of
+    the kernels line."""
+    import multiprocessing
     import torch
     from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
     from lzma_sdk_zliblike_tpu_torch.ops import filters as F
     from lzma_sdk_zliblike_tpu_torch.tools import best_ms
-    cm = corpus_module()
+    cm, FB = corpus_module(), filter_batches()
     res = {"checks": [], "mismatches": []}
-    host = {"x86": lambda b, i, encoding: F.x86_convert(b, i, encoding)[0]}
-    plain_ms = {"x86": 0.0, "bcj2": 0.0}
-    x86_err = 0
-    for k, name in enumerate(("arm", "armt", "ppc", "sparc", "ia64", "x86")):
-        data, valid, ip = mk_filter_batch(k * 101 + 3)
-        fn = host.get(name, getattr(F, f"{name}_convert"))
-        for encoding in (True, False):
-            t = time.perf_counter()
-            plain = DF.convert_batch(name, data, valid, ip, encoding=encoding,
-                                     device="cpu")
-            if name == "x86":
-                plain_ms["x86"] += (time.perf_counter() - t) * 1e3
-            kern = DF.convert_batch(name, data, valid, ip, encoding=encoding,
-                                    device=device)
-            if name == "x86":
-                x86_err = max(x86_err, int(np.abs(
-                    kern.astype(np.int64) - plain.astype(np.int64)).max()))
-            same = np.array_equal(kern, plain) and all(
-                kern[s, :n].tobytes() == fn(data[s, :n].tobytes(), int(ip[s]),
-                                             encoding=encoding)
-                for s, n in enumerate(valid.tolist()))
-            if encoding:      # round trip at 16-aligned offsets (ia64's)
-                ip16 = ip & ~np.uint32(15)
-                enc = DF.convert_batch(name, data, valid, ip16, encoding=True,
-                                       device=device)
-                back = DF.convert_batch(name, enc, valid, ip16,
-                                        encoding=False, device=device)
-                same = same and np.array_equal(back, data[:, :back.shape[1]])
-            res["checks"].append([name, encoding, bool(same)])
-            if not same:
-                res["mismatches"].append([name, encoding])
-    data, valid, _ = mk_filter_batch(7)
-    for dist in (1, 4, 255):
-        t_d, t_v = torch.from_numpy(data), torch.from_numpy(valid)
-        enc = DF.delta_batch(t_d.to(device), t_v.to(device), dist=dist,
-                             encoding=True)
-        dec = DF.delta_batch(enc, t_v.to(device), dist=dist, encoding=False)
-        same = (torch.equal(enc.cpu(), DF.delta_batch(t_d, t_v, dist=dist,
-                                                      encoding=True))
-                and torch.equal(dec.cpu(), t_d))
-        res["checks"].append(["delta", dist, bool(same)])
-        if not same:
-            res["mismatches"].append(["delta", dist])
-    # BCJ2: the JAX test's lanes and two truncated rc streams
-    rng = np.random.default_rng(11)
-    datas = []
-    for s in range(4):
-        d = bytearray(cm.random_bytes(8192 + 512 * s, seed=100 + s))
-        for _ in range(60):
-            off = int(rng.integers(0, len(d) - 8))
-            kind = int(rng.integers(0, 3))
-            if kind == 2:
-                d[off] = 0x0F
-                d[off + 1] = 0x80 | int(rng.integers(0, 16))
-            else:
-                d[off] = 0xE8 + kind
-            d[off + 5] = 0x00 if rng.integers(0, 2) else 0xFF
-        datas.append(bytes(d))
-    args, want_ok = bcj2_batch(datas, truncate=True)
-    t = time.perf_counter()
-    p_out, p_ok = DF.bcj2_decode_batch(*args)
-    plain_ms["bcj2"] = (time.perf_counter() - t) * 1e3
-    k_out, k_ok = DF.bcj2_decode_batch(*[a.to(device) for a in args])
-    k_out, k_ok = k_out.cpu(), k_ok.cpu()
-    good = torch.tensor(want_ok)
-    bcj2_err = int((k_out[good].long() - p_out[good].long()).abs().max())
-    bcj2_same = (k_ok.tolist() == p_ok.tolist() == want_ok and all(
-        torch.equal(k_out[s], p_out[s]) for s in range(len(want_ok))
-        if want_ok[s]) and all(k_out[s, :len(d)].numpy().tobytes() == d
-                               for s, d in enumerate(datas)))
-    res["bcj2_check"] = {"ok": k_ok.tolist(), "equal": bool(bcj2_same)}
-    # the wide batches: one lane per SM of 1 MiB of x86_like
+    err = {"x86": 0, "bcj2": 0}
+    # the wide batches' inputs, and their plain versions started at once
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     distinct = [cm.x86_like(MIB, seed=60 + i) for i in range(8)]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         refs = list(pool.map(lambda d: F.x86_convert(d, 0, True)[0],
                              distinct))
-    rows = np.stack([np.frombuffer(distinct[i % 8], np.uint8)
-                     for i in range(sms)])
-    wide = torch.from_numpy(rows).to(device)
-    valid = torch.full((sms,), MIB, dtype=torch.int32, device=device)
-    ip = torch.zeros(sms, dtype=torch.int64, device=device)
-    bargs, _ = bcj2_batch(distinct, truncate=False)
-    bargs = [a.to(device) for a in bargs]
-    lane_of = torch.arange(sms) % 8
-    bargs = [a[lane_of.to(device)].contiguous() for a in bargs]
-    DF.launches["x86"] = DF.launches["bcj2"] = 0
-    enc = DF.x86_convert_batch(wide, valid, ip, encoding=True)
-    dec = DF.x86_convert_batch(enc, valid, ip, encoding=False)
-    b_out, b_ok = DF.bcj2_decode_batch(*bargs)
-    launches = dict(DF.launches)
-    enc_rows = enc.cpu().numpy()
+        streams, lens, out_size, _ = FB.bcj2_lanes(
+            distinct, F.bcj2_encode, edge=False, map_fn=pool.map)
+    rows8 = np.stack([np.frombuffer(d, np.uint8) for d in distinct])
+    refs8 = np.stack([np.frombuffer(d, np.uint8) for d in refs])
+    valid8 = np.full(8, MIB, np.int32)
+    ip8 = np.zeros(8, np.int64)
+    bcj2_8 = [x for a, n in zip(streams, lens) for x in (a, n)] + [out_size]
+    procs = concurrent.futures.ProcessPoolExecutor(
+        3, mp_context=multiprocessing.get_context("spawn"))
+    with procs:
+        jobs = {
+            "x86_enc": procs.submit(plain_job, "x86_convert_plain",
+                                    [rows8, valid8, ip8], {"encoding": True}),
+            "x86_dec": procs.submit(plain_job, "x86_convert_plain",
+                                    [refs8, valid8, ip8], {"encoding": False}),
+            "bcj2": procs.submit(plain_job, "bcj2_decode_plain", bcj2_8, {})}
+        small = device_filters_small(device, FB, res, err)
+        # the wide batches on the card: the main path of X4
+        rows = np.stack([rows8[i % 8] for i in range(sms)])
+        wide = torch.from_numpy(rows).to(device)
+        valid = torch.full((sms,), MIB, dtype=torch.int32, device=device)
+        ip = torch.zeros(sms, dtype=torch.int64, device=device)
+        lane_of = torch.arange(sms, device=device) % 8
+        bargs = [torch.from_numpy(a).to(device)[lane_of].contiguous()
+                 for a in bcj2_8]
+        DF.launches["x86"] = DF.launches["bcj2"] = 0
+        enc = DF.x86_convert_batch(wide, valid, ip, encoding=True)
+        dec = DF.x86_convert_batch(enc, valid, ip, encoding=False)
+        b_out, b_ok = DF.bcj2_decode_batch(*bargs)
+        launches = dict(DF.launches)
+        enc_rows, dec_rows = enc.cpu().numpy(), dec.cpu().numpy()
+        b_out, b_ok = b_out.cpu().numpy(), b_ok.cpu().numpy()
+        x86_ms = best_ms(lambda: DF.x86_convert_batch(wide, valid, ip,
+                                                      encoding=True))
+        bcj2_ms = best_ms(lambda: DF.bcj2_decode_batch(*bargs))
+        t = time.perf_counter()
+        plain = {k: f.result() for k, f in jobs.items()}
+        res["plain_wait_s"] = time.perf_counter() - t
+    (p_enc, enc_ms), (p_dec, dec_ms) = plain["x86_enc"], plain["x86_dec"]
+    (p_out, p_ok), bcj2_plain_ms = plain["bcj2"]
+    lanes = np.arange(sms) % 8
+    err["x86"] = max(err["x86"], max_err(enc_rows, p_enc[lanes]),
+                     max_err(dec_rows, p_dec[lanes]))
+    err["bcj2"] = max(err["bcj2"], max_err(b_out, p_out[lanes]))
     res["x86_wide"] = {
         "lanes": sms, "lane_bytes": MIB,
-        "equal_host": all(enc_rows[i].tobytes() == refs[i % 8]
-                          for i in range(sms)),
-        "roundtrip": bool(torch.equal(dec, wide))}
-    b_out = b_out.cpu()
+        "equal_plain": bool(np.array_equal(enc_rows, p_enc[lanes])
+                            and np.array_equal(dec_rows, p_dec[lanes])),
+        "equal_host": bool(np.array_equal(enc_rows, refs8[lanes])),
+        "roundtrip": bool(np.array_equal(dec_rows, rows)),
+        "plain_enc_ms": enc_ms, "plain_dec_ms": dec_ms}
     res["bcj2_wide"] = {
         "lanes": sms, "all_ok": bool(b_ok.all()),
-        "equal_input": all(b_out[i, :MIB].numpy().tobytes() == distinct[i % 8]
-                           for i in range(sms))}
-    x86_ms = best_ms(lambda: DF.x86_convert_batch(wide, valid, ip,
-                                                  encoding=True))
-    bcj2_ms = best_ms(lambda: DF.bcj2_decode_batch(*bargs))
+        "equal_plain": bool(np.array_equal(b_ok, p_ok[lanes])
+                            and np.array_equal(b_out, p_out[lanes])),
+        "equal_input": bool(np.array_equal(b_out[:, :MIB], rows)),
+        "plain_ms": bcj2_plain_ms}
     x86_bytes = 2 * rows.size
     bcj2_bytes = sum(int(bargs[k].sum()) for k in (1, 3, 5, 7)) + \
         int(bargs[8].sum())
@@ -1846,8 +1770,9 @@ def device_filters(device) -> tuple[dict, list]:
     res["bcj2_wide"].update(ms=bcj2_ms, bound_ms=bcj2_bytes / HBM_BYTES_PER_S
                             * 1e3, bytes=bcj2_bytes)
     res["launches"] = launches
-    ok_x86 = not any(m[0] == "x86" for m in res["mismatches"])
-    res["pass"] = (not res["mismatches"] and bcj2_same
+    same = {"x86": (small["x86"] and res["x86_wide"]["equal_plain"]),
+            "bcj2": (small["bcj2"] and res["bcj2_wide"]["equal_plain"])}
+    res["pass"] = (not res["mismatches"] and same["x86"] and same["bcj2"]
                    and res["x86_wide"]["equal_host"]
                    and res["x86_wide"]["roundtrip"]
                    and res["bcj2_wide"]["all_ok"]
@@ -1855,20 +1780,112 @@ def device_filters(device) -> tuple[dict, list]:
                    and launches["x86"] > 0 and launches["bcj2"] > 0)
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
               "source": "lzma_sdk_zliblike_tpu_torch/csrc/device_filters.cu"}
+    batch = f"the {sms} x 1 MiB lanes' 8 distinct ones"
     entries = [{
         "name": "device_filters x86 (X4)", **common,
         "replaces": "lzma_sdk_zliblike_tpu/ops/device_filters.py:223",
-        "launches": launches["x86"], "matches_plain": ok_x86,
-        "max_abs_err": x86_err, "ms": x86_ms,
-        "plain_ms": plain_ms["x86"], "plain_batch": "5 x 4 KiB, both ways",
+        "launches": launches["x86"], "matches_plain": same["x86"],
+        "max_abs_err": err["x86"], "ms": x86_ms, "plain_ms": enc_ms,
+        "plain_batch": f"{batch}, encode",
         "bound_ms": res["x86_wide"]["bound_ms"]}, {
         "name": "device_filters bcj2 (X4)", **common,
         "replaces": "lzma_sdk_zliblike_tpu/ops/device_filters.py:340",
-        "launches": launches["bcj2"], "matches_plain": bool(bcj2_same),
-        "max_abs_err": bcj2_err, "ms": bcj2_ms,
-        "plain_ms": plain_ms["bcj2"], "plain_batch": "6 lanes of 8-10 KiB",
+        "launches": launches["bcj2"], "matches_plain": same["bcj2"],
+        "max_abs_err": err["bcj2"], "ms": bcj2_ms,
+        "plain_ms": bcj2_plain_ms, "plain_batch": batch,
         "bound_ms": res["bcj2_wide"]["bound_ms"]}]
     return res, entries
+
+
+def device_filters_small(device, FB, res, err) -> dict:
+    """Phase 18's small batches (see ``device_filters``): appends to
+    ``res``'s checks and mismatches, raises ``err`` to the largest
+    kernel-to-plain difference and returns whether x86 and BCJ2 each equal
+    their plain versions on every batch."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
+    from lzma_sdk_zliblike_tpu_torch.ops import filters as F
+    host = {"x86": lambda b, i, encoding: F.x86_convert(b, i, encoding)[0]}
+    same = {"x86": True, "bcj2": True}
+    for k, name in enumerate(("arm", "armt", "ppc", "sparc", "ia64", "x86")):
+        data, valid, ip = FB.salted_batch(k * 101 + 3)
+        fn = host.get(name, getattr(F, f"{name}_convert"))
+        for encoding in (True, False):
+            plain = DF.convert_batch(name, data, valid, ip, encoding=encoding,
+                                     device="cpu")
+            kern = DF.convert_batch(name, data, valid, ip, encoding=encoding,
+                                    device=device)
+            ok = np.array_equal(kern, plain) and all(
+                kern[s, :n].tobytes() == fn(data[s, :n].tobytes(), int(ip[s]),
+                                             encoding=encoding)
+                for s, n in enumerate(valid.tolist()))
+            if name == "x86":
+                err["x86"] = max(err["x86"], max_err(kern, plain))
+                same["x86"] = same["x86"] and np.array_equal(kern, plain)
+            if encoding:      # round trip at 16-aligned offsets (ia64's)
+                ip16 = ip & ~np.uint32(15)
+                enc = DF.convert_batch(name, data, valid, ip16, encoding=True,
+                                       device=device)
+                back = DF.convert_batch(name, enc, valid, ip16,
+                                        encoding=False, device=device)
+                ok = ok and np.array_equal(back, data[:, :back.shape[1]])
+            res["checks"].append([name, encoding, bool(ok)])
+            if not ok:
+                res["mismatches"].append([name, encoding])
+    for tag, make in (("x86_edge", FB.x86_edge_batch),
+                      ("x86_past_row", FB.x86_past_row_batch)):
+        for encoding in (True, False):
+            plain = DF.convert_batch("x86", *make(), encoding=encoding,
+                                     device="cpu")
+            kern = DF.convert_batch("x86", *make(), encoding=encoding,
+                                    device=device)
+            ok = np.array_equal(kern, plain)
+            err["x86"] = max(err["x86"], max_err(kern, plain))
+            same["x86"] = same["x86"] and ok
+            res["checks"].append([tag, encoding, bool(ok)])
+            if not ok:
+                res["mismatches"].append([tag, encoding])
+    data, valid, _ = FB.salted_batch(7)
+    for dist in (1, 4, 255):
+        t_d, t_v = torch.from_numpy(data), torch.from_numpy(valid)
+        enc = DF.delta_batch(t_d.to(device), t_v.to(device), dist=dist,
+                             encoding=True)
+        dec = DF.delta_batch(enc, t_v.to(device), dist=dist, encoding=False)
+        ok = (torch.equal(enc.cpu(), DF.delta_batch(t_d, t_v, dist=dist,
+                                                    encoding=True))
+              and torch.equal(dec.cpu(), t_d))
+        res["checks"].append(["delta", dist, bool(ok)])
+        if not ok:
+            res["mismatches"].append(["delta", dist])
+    # BCJ2: the corpus and edge lanes, the past-the-row lanes and main
+    # streams that fill their rows and end on a site
+    datas = FB.bcj2_corpus()
+    streams, lens, out_size, want_ok = FB.bcj2_lanes(datas, F.bcj2_encode,
+                                                     edge=True)
+    res["bcj2_check"] = {}
+    for tag, (streams, lens, out_size) in (
+            ("edge", (streams, lens, out_size)),
+            ("past_row", FB.bcj2_past_row_batch(F.bcj2_encode)),
+            ("site_at_end", FB.bcj2_site_at_end(F.bcj2_encode)[:3])):
+        args = [torch.from_numpy(x) for a, n in zip(streams, lens)
+                for x in (a, n)] + [torch.from_numpy(out_size)]
+        p_out, p_ok = DF.bcj2_decode_batch(*args)
+        k_out, k_ok = DF.bcj2_decode_batch(*[a.to(device) for a in args])
+        k_out, k_ok = k_out.cpu(), k_ok.cpu()
+        good = p_ok.numpy()
+        err["bcj2"] = max(err["bcj2"], max_err(k_out.numpy()[good],
+                                               p_out.numpy()[good]))
+        ok = (k_ok.tolist() == p_ok.tolist()
+              and torch.equal(k_out[p_ok], p_out[p_ok]))
+        same["bcj2"] = same["bcj2"] and ok
+        if tag == "edge":
+            ok = ok and p_ok.tolist() == want_ok and all(
+                k_out[s, :len(d)].numpy().tobytes() == d
+                for s, d in enumerate(datas))
+        res["bcj2_check"][tag] = {"ok": k_ok.tolist(), "equal": bool(ok)}
+        if not ok:
+            res["mismatches"].append(["bcj2", tag])
+    return same
 
 
 def one_call(data: bytes, device) -> dict:

@@ -202,11 +202,13 @@ extern "C" int lzt_crc_combine_cpu(const void* states, long long n, const void* 
 }
 
 // X4's x86 BCJ (device_filters.cu) over n_lanes rows of `row` bytes of
-// `out`, converted in place; valid int32 and ip int64 per lane.
-extern "C" int lzt_x86_batch_cpu(void* out, long long row, const void* valid,
+// `in` into `out`, which holds a copy of `in`; valid int32 and ip int64 per
+// lane.
+extern "C" int lzt_x86_batch_cpu(const void* in, void* out, long long row, const void* valid,
                                  const void* ip, int n_lanes, int encoding) {
   for (int lane = 0; lane < n_lanes; ++lane)
-    lzt::filt::x86_lane((uint8_t*)out + lane * row, ((const int32_t*)valid)[lane],
+    lzt::filt::x86_lane((const uint8_t*)in + lane * row, (uint8_t*)out + lane * row,
+                        (int32_t)row, ((const int32_t*)valid)[lane],
                         (uint32_t)((const int64_t*)ip)[lane], encoding != 0);
   return 0;
 }

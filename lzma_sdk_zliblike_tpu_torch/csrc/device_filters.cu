@@ -36,10 +36,11 @@ namespace {
 
 // One block of one thread per lane.
 __global__ void __launch_bounds__(1)
-    x86_kernel(uint8_t* __restrict__ out, long long row, const int32_t* __restrict__ valid,
-               const int64_t* __restrict__ ip, int encoding) {
+    x86_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long row,
+               const int32_t* __restrict__ valid, const int64_t* __restrict__ ip, int encoding) {
   const long long lane = blockIdx.x;
-  x86_lane(out + lane * row, valid[lane], (uint32_t)ip[lane], encoding != 0);
+  x86_lane(in + lane * row, out + lane * row, (int32_t)row, valid[lane], (uint32_t)ip[lane],
+           encoding != 0);
 }
 
 __global__ void __launch_bounds__(1)
@@ -59,15 +60,15 @@ __global__ void __launch_bounds__(1)
 
 }  // namespace
 
-// Launches x86 BCJ in place on `stream` without synchronising: out is
-// [n_lanes, row] uint8 holding a copy of the input, valid int32 and ip int64
+// Launches x86 BCJ on `stream` without synchronising: in and out are
+// [n_lanes, row] uint8, out holding a copy of in, valid int32 and ip int64
 // (uint32 values) per lane.  Returns the CUDA error code (0 = launched).
-extern "C" int lzt_x86_batch(void* out, long long row, const void* valid, const void* ip,
-                             int n_lanes, int encoding, void* stream) {
+extern "C" int lzt_x86_batch(const void* in, void* out, long long row, const void* valid,
+                             const void* ip, int n_lanes, int encoding, void* stream) {
   if (n_lanes <= 0) return 0;
   if (row <= 0 || row >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   x86_kernel<<<n_lanes, 1, 0, (cudaStream_t)stream>>>(
-      (uint8_t*)out, row, (const int32_t*)valid, (const int64_t*)ip, encoding);
+      (const uint8_t*)in, (uint8_t*)out, row, (const int32_t*)valid, (const int64_t*)ip, encoding);
   return (int)cudaGetLastError();
 }
 

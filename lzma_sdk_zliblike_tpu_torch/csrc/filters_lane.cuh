@@ -11,7 +11,9 @@
 // converts only p < valid - 4 and bounds the dest retry (Bra86.c:58-67) at
 // 8 trips; BCJ2 takes its initial code from rc bytes 1-4 of the row
 // whatever rc_len says, reads rc bytes past rc_len as 0, and fills a row
-// as the JAX scatter does (see bcj2_lane).
+// as the JAX scatter does (see bcj2_lane).  Neither reads or writes outside
+// a lane's rows, whatever the lengths: an index past a row reads (x86:
+// and writes) the row's last byte, as the JAX gathers clamp it.
 #pragma once
 
 #include <stdint.h>
@@ -35,33 +37,53 @@ __host__ __device__ __forceinline__ uint32_t mask_to_bit(uint32_t m) {
 // kMaskToAllowedStatus of Bra86.c:15: masks 0, 1, 2 and 4 allowed.
 __host__ __device__ __forceinline__ bool mask_allowed(uint32_t m) { return (0x17u >> m) & 1; }
 
-// x86 BCJ over one lane of `valid` bytes at stream offset `ip`.  `out`
-// holds a copy of the lane's bytes on entry and is converted in place:
-// every byte the scan reads lies at or after the current position, and a
-// conversion at p rewrites p+1..p+4 and resumes at p+5, so the reads see the
-// input's own bytes.  Bytes from `valid` on are left as they are.
-__host__ __device__ inline void x86_lane(uint8_t* out, int32_t valid, uint32_t ip,
-                                         bool encoding) {
+// Byte i of a row of w bytes, the last one for i >= w.
+__host__ __device__ __forceinline__ uint32_t byte_at(const uint8_t* row, int32_t w, int32_t i) {
+  return row[i < w ? i : w - 1];
+}
+
+// The first E8/E9 byte of `in` at or after q (q past `last` reads from
+// `last`), or `stop` when there is none below it: the JAX next-candidate
+// table gives the row's length for none, and both end the scan unless the
+// position is below the limit.
+__host__ __device__ __forceinline__ int32_t x86_next(const uint8_t* in, int32_t q,
+                                                    int32_t last, int32_t stop) {
+  for (q = q < last ? q : last; q < stop; ++q)
+    if ((in[q] & 0xFE) == 0xE8) return q;
+  return stop;
+}
+
+// x86 BCJ over one lane: the row `in` of `row` bytes, of which the first
+// `valid` are the stream at offset `ip`, converted into `out`, which holds a
+// copy of the row on entry; bytes the scan does not rewrite stay as they
+// are.  As in the JAX batch function, the scan steps from one E8/E9 byte of
+// `in` to the next while the position is below valid - 4, for at most `row`
+// steps, and every read and write index past the row is clamped to its last
+// byte; for valid <= row no index reaches past the row and this is the
+// reference's machine.
+__host__ __device__ inline void x86_lane(const uint8_t* in, uint8_t* out, int32_t row,
+                                         int32_t valid, uint32_t ip, bool encoding) {
+  const int64_t limit = (int64_t)valid - 4;
+  const int32_t stop = limit < row ? (int32_t)limit : row;
+  const int32_t last = row - 1;
   uint32_t mask = 0;
   int32_t prev_pos = -1;
-  for (int32_t p = 0; p < valid - 4;) {
-    if ((out[p] & 0xFE) != 0xE8) {
-      ++p;
-      continue;
-    }
+  int32_t p = x86_next(in, 0, last, stop);
+  for (int32_t it = 0; it < row && p < limit; ++it) {
     const int32_t d = p - prev_pos;
     prev_pos = p;
-    mask = d > 3 ? 0 : (mask << (d - 1)) & 7;
+    mask = d > 3 ? 0 : (mask << (d > 1 ? d - 1 : 0)) & 7;
     const uint32_t m2b = mask_to_bit(mask);
-    const bool skip = (mask != 0 && (!mask_allowed(mask) || test86(out[p + 4 - m2b]))) ||
-                      !test86(out[p + 4]);
+    const bool skip =
+        (mask != 0 && (!mask_allowed(mask) || test86(byte_at(in, row, p + 4 - m2b)))) ||
+        !test86(byte_at(in, row, p + 4));
     if (skip) {
       mask = ((mask << 1) & 7) | 1;
-      ++p;
+      p = x86_next(in, p + 1, last, stop);
       continue;
     }
-    uint32_t src = (uint32_t)out[p + 1] | ((uint32_t)out[p + 2] << 8) |
-                   ((uint32_t)out[p + 3] << 16) | ((uint32_t)out[p + 4] << 24);
+    uint32_t src = byte_at(in, row, p + 1) | (byte_at(in, row, p + 2) << 8) |
+                   (byte_at(in, row, p + 3) << 16) | (byte_at(in, row, p + 4) << 24);
     const uint32_t pos = ip + (uint32_t)p + 5;
     const uint32_t idx8 = m2b * 8;
     uint32_t dest = 0;
@@ -72,13 +94,16 @@ __host__ __device__ inline void x86_lane(uint8_t* out, int32_t valid, uint32_t i
     }
     dest &= 0x01FFFFFF;
     if (dest & 0x01000000) dest |= 0xFE000000;
-    for (int j = 0; j < 4; ++j) out[p + 1 + j] = (uint8_t)(dest >> (8 * j));
-    p += 5;
+    for (int j = 0; j < 4; ++j)
+      out[p + 1 + j < last ? p + 1 + j : last] = (uint8_t)(dest >> (8 * j));
+    p = x86_next(in, p + 5, last, stop);
   }
 }
 
 // One lane's four BCJ2 streams: each pointer is the lane's row of `w` bytes,
-// of which the first `len` are the stream.
+// of which the first `len` are the stream.  As in the JAX batch function, a
+// len past its row reads the row's last byte for every index past it (the
+// main stream's sites stop at the row's end).
 struct Bcj2Lane {
   const uint8_t* main;
   int32_t main_w, main_len;
@@ -93,8 +118,9 @@ struct Bcj2Lane {
 
 constexpr int kBcj2Probs = 2 + 256;
 
-__host__ __device__ __forceinline__ uint32_t be32(const uint8_t* p) {
-  return ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) | ((uint32_t)p[2] << 8) | p[3];
+__host__ __device__ __forceinline__ uint32_t be32(const uint8_t* row, int32_t w, int32_t i) {
+  return (byte_at(row, w, i) << 24) | (byte_at(row, w, i + 1) << 16) |
+         (byte_at(row, w, i + 2) << 8) | byte_at(row, w, i + 3);
 }
 
 // One walk over the main stream's sites.  With out == nullptr it only counts
@@ -106,12 +132,12 @@ __host__ __device__ inline bool bcj2_walk(const Bcj2Lane& L, uint16_t* probs, ui
                                           int32_t out_cap, int32_t main_used,
                                           int32_t* nconv_out) {
   for (int i = 0; i < kBcj2Probs; ++i) probs[i] = 1024;
-  uint32_t code = 0;
-  for (int i = 1; i <= 4; ++i) code = (code << 8) | L.rc[i < L.rc_w ? i : L.rc_w - 1];
+  uint32_t code = be32(L.rc, L.rc_w, 1);
   uint32_t rng = 0xFFFFFFFFu;
   int32_t rcpos = 5, nconv = 0, cpos = 0, jpos = 0, lastc = -2;
   uint32_t last_top = 0;
-  for (int32_t p = 0; p < L.main_len; ++p) {
+  const int32_t main_end = L.main_len < L.main_w ? L.main_len : L.main_w;
+  for (int32_t p = 0; p < main_end; ++p) {
     const uint32_t b = L.main[p];
     if (out && p < main_used) {
       const int32_t o = p + 4 * nconv;
@@ -128,7 +154,7 @@ __host__ __device__ inline bool bcj2_walk(const Bcj2Lane& L, uint16_t* probs, ui
     if (!e8 && !e9 && prev != 0x0F) continue;
     const int pidx = e8 ? 2 + (int)prev : e9 ? 0 : 1;
     if (rng < (1u << 24)) {
-      code = (code << 8) | (rcpos < L.rc_len ? L.rc[rcpos] : 0u);
+      code = (code << 8) | (rcpos < L.rc_len ? byte_at(L.rc, L.rc_w, rcpos) : 0u);
       rng <<= 8;
       ++rcpos;
     }
@@ -144,7 +170,8 @@ __host__ __device__ inline bool bcj2_walk(const Bcj2Lane& L, uint16_t* probs, ui
     probs[pidx] = (uint16_t)(pr - (pr >> 5));
     int32_t& spos = e8 ? cpos : jpos;
     if (spos + 4 > (e8 ? L.call_len : L.jump_len)) return false;
-    const uint32_t rel = be32((e8 ? L.call : L.jump) + spos) - (uint32_t)(out_after + 4);
+    const uint32_t rel = (e8 ? be32(L.call, L.call_w, spos) : be32(L.jump, L.jump_w, spos)) -
+                         (uint32_t)(out_after + 4);
     spos += 4;
     if (out)
       for (int j = 0; j < 4; ++j)

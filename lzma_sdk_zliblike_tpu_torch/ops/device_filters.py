@@ -38,12 +38,12 @@ _M32 = 0xFFFFFFFF
 
 launches = {"x86": 0, "bcj2": 0}   # kernel launches on the card; set to 0
 
-# lzt_x86_batch(out, row, valid, ip, n_lanes, encoding, stream) and
+# lzt_x86_batch(in, out, row, valid, ip, n_lanes, encoding, stream) and
 # lzt_bcj2_batch(main, main_w, main_len, call, call_w, call_len, jump,
 # jump_w, jump_len, rc, rc_w, rc_len, out_size, out, out_cap, ok, n_lanes,
 # stream) in csrc/device_filters.cu
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_X86_ARGTYPES = [_P, _L, _P, _P, _I, _I, _P]
+_X86_ARGTYPES = [_P, _P, _L, _P, _P, _I, _I, _P]
 _BCJ2_ARGTYPES = [_P, _I, _P] * 4 + [_P, _P, _I, _P, _I, _P]
 
 
@@ -234,23 +234,28 @@ def x86_convert_batch(data, valid, ip, *, encoding: bool):
     mask state 0, converting sites at p < valid - 4: equal to the host's
     ``ops/filters.x86_convert`` over each lane's ``valid`` bytes.
 
+    As in the JAX function, a lane's scan stops after L steps and reads
+    and writes its row's last byte for every index past it, which only a
+    ``valid`` above L reaches.
+
     On a CUDA tensor this launches the kernel on the current stream (one
-    thread per lane, converting a copy of ``data`` in place); on a CPU
-    tensor it runs ``x86_convert_plain``."""
+    thread per lane, from ``data`` into a copy of it); on a CPU tensor it
+    runs ``x86_convert_plain``."""
     _check_lanes(data, valid, ip)
     if data.device.type == "cpu":
         return x86_convert_plain(data, valid, ip, encoding=encoding)
     from . import _build
     S, L = data.shape
-    out = data.contiguous().clone()
+    src = data.contiguous()
+    out = src.clone()
     v = valid.to(torch.int32).contiguous()
     i = (ip.to(torch.int64) & _M32).contiguous()
     fn = _build.library("device_filters").lzt_x86_batch
     fn.restype = ctypes.c_int
     fn.argtypes = _X86_ARGTYPES
     with torch.cuda.device(data.device):
-        rc = fn(out.data_ptr(), L, v.data_ptr(), i.data_ptr(), S,
-                1 if encoding else 0,
+        rc = fn(src.data_ptr(), out.data_ptr(), L, v.data_ptr(),
+                i.data_ptr(), S, 1 if encoding else 0,
                 torch.cuda.current_stream(data.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"x86 filter kernel launch failed: CUDA error {rc}")
@@ -264,7 +269,9 @@ def x86_convert_plain(data, valid, ip, *, encoding: bool):
     the next over a next-candidate table of the original bytes, so the
     iterations are the most candidates of any lane; conversions patch a
     separate copy (every read lies at or after the candidate, every patch
-    before the resumption point)."""
+    before the resumption point).  A step in which no lane converts skips
+    the conversion's operations, and the dest retry stops once no lane
+    goes on: both leave the rows as the full step would."""
     S, L = data.shape
     dev = data.device
     d8 = data.to(torch.int64)
@@ -276,6 +283,9 @@ def x86_convert_plain(data, valid, ip, *, encoding: bool):
     allow_t = torch.tensor(_M2ALLOW, device=dev)
     m2b_t = torch.tensor(_M2BIT, device=dev)
     ipu = ip.to(torch.int64) & _M32
+
+    win = torch.arange(5, device=dev)
+    shifts = torch.arange(0, 32, 8, device=dev)
 
     def take1(tbl, idx):
         return tbl[rows, idx.clamp(0, L - 1)]
@@ -297,11 +307,16 @@ def x86_convert_plain(data, valid, ip, *, encoding: bool):
         prev_pos = torch.where(act, p, prev_pos)
         allowed = allow_t[mask] != 0
         m2b = m2b_t[mask]
-        skip1 = (mask != 0) & (~allowed | test86(take1(d8, p + 4 - m2b)))
-        convm = act & ~skip1 & test86(take1(d8, p + 4))
+        w = d8.gather(1, (p[:, None] + win).clamp(max=L - 1))   # p .. p+4
+        skip1 = (mask != 0) & (~allowed | test86(
+            w.gather(1, (4 - m2b)[:, None])[:, 0]))
+        convm = act & ~skip1 & test86(w[:, 4])
         mask = torch.where(act & ~convm, ((mask << 1) & 7) | 1, mask)
-        src = (take1(d8, p + 1) | (take1(d8, p + 2) << 8)
-               | (take1(d8, p + 3) << 16) | (take1(d8, p + 4) << 24))
+        step = torch.where(act, take1(nxt, p + 1), ptr)
+        if not bool(convm.any()):
+            ptr = step
+            continue
+        src = (w[:, 1:] << shifts).sum(1)
         pos = (ipu + p + 5) & _M32
         going = convm
         dest = torch.zeros_like(src)
@@ -311,17 +326,22 @@ def x86_convert_plain(data, valid, ip, *, encoding: bool):
             d_t = _convert(src, pos, encoding)
             dest = torch.where(going, d_t, dest)
             bb = (d_t >> (24 - idx8).clamp(0, 31)) & 0xFF
-            cont = going & (mask != 0) & test86(bb)
-            src = torch.where(cont, d_t ^ xm, src)
-            going = cont
+            going = going & (mask != 0) & test86(bb)
+            if not bool(going.any()):
+                break
+            src = torch.where(going, d_t ^ xm, src)
         dest = dest & 0x01FFFFFF
         dest = torch.where((dest & 0x01000000) != 0, dest | 0xFE000000, dest)
-        for j in range(4):
-            col = (p + 1 + j).clamp(0, L - 1)
-            nb = ((dest >> (8 * j)) & 0xFF).to(torch.uint8)
-            out[rows, col] = torch.where(convm, nb, out[rows, col])
-        ptr = torch.where(convm, take1(nxt, p + 5),
-                          torch.where(act, take1(nxt, p + 1), ptr))
+        nb = ((dest[:, None] >> shifts) & 0xFF).to(torch.uint8)
+        if int(p.max()) + 4 < L:       # p+1 .. p+4 distinct: one scatter
+            cols = p[:, None] + win[1:]
+            out.scatter_(1, cols, torch.where(convm[:, None], nb,
+                                              out.gather(1, cols)))
+        else:                          # clamped columns: the last one wins
+            for j in range(4):
+                col = (p + 1 + j).clamp(0, L - 1)
+                out[rows, col] = torch.where(convm, nb[:, j], out[rows, col])
+        ptr = torch.where(convm, take1(nxt, p + 5), step)
     return out
 
 
@@ -397,7 +417,9 @@ def bcj2_decode_plain(main, main_len, call, call_len, jump, jump_len, rc,
     """``bcj2_decode_batch`` in torch ops: the JAX package's lockstep scan
     over a candidate superset (E8/E9/8x bytes of main; the ``prev == 0x0F``
     half of the Jcc test is checked in the loop) with a masked range decoder
-    per lane, then the output assembled by two scatters."""
+    per lane, then the output assembled by two scatters.  A step in which
+    no lane meets a site, or no lane converts, skips the operations that
+    would leave every lane as it was."""
     S, Lm = main.shape
     dev = main.device
     rows = torch.arange(S, device=dev)
@@ -405,8 +427,17 @@ def bcj2_decode_plain(main, main_len, call, call_len, jump, jump_len, rc,
     posL = torch.arange(Lm, device=dev)
     main_len = main_len.to(torch.int64)
     is_t = ((m8 & 0xFE) == 0xE8) | ((m8 & 0xF0) == 0x80)
+    # a Jcc byte is a site only after 0F, or after a site whose rel32 ends
+    # in 0F: one after any other byte never is, and leaves the superset
+    prev_m = torch.nn.functional.pad(m8[:, :-1], (1, 0))
+    prev_t = torch.nn.functional.pad(is_t[:, :-1], (1, 0))
+    is_t &= ((m8 & 0xFE) == 0xE8) | (prev_m == 0x0F) | prev_t
     cand = is_t & (posL[None, :] < main_len[:, None])
     nxt = torch.where(cand, posL, Lm).flip(1).cummin(1).values.flip(1)
+    # one column past the row, so a site in the row's last byte steps to Lm
+    # and ends the scan (the JAX table has no such column: its scan then
+    # stays on that byte and never ends)
+    nxt = torch.nn.functional.pad(nxt, (0, 1), value=Lm)
 
     def take1(tbl, idx):
         return tbl[rows, idx.clamp(0, tbl.shape[1] - 1)]
@@ -438,6 +469,9 @@ def bcj2_decode_plain(main, main_len, call, call_len, jump, jump_len, rc,
         isE8, isE9 = b == 0xE8, b == 0xE9
         candq = act & (out_after < out_size) & (
             isE8 | isE9 | (((b & 0xF0) == 0x80) & (prev == 0x0F)))
+        ptr = torch.where(act, take1(nxt, p + 1), ptr)
+        if not bool(candq.any()):
+            continue
         pidx = torch.where(isE8, 2 + prev, torch.where(isE9, 0, 1))
         need = candq & (rngv < (1 << 24))
         byt = torch.where(rcpos < rc_len, take1(rc8, rcpos), 0)
@@ -453,6 +487,8 @@ def bcj2_decode_plain(main, main_len, call, call_len, jump, jump_len, rc,
         rngv = torch.where(candq, torch.where(bit1, rngv - bound, bound), rngv)
         code = torch.where(candq & bit1, code - bound, code)
         convq = candq & bit1
+        if not bool(convq.any()):
+            continue
         spos = torch.where(isE8, cpos, jpos)
         dest = torch.where(isE8, be32(call8, spos), be32(jump8, spos))
         err = err | (convq & (spos + 4 > torch.where(isE8, call_len, jump_len)))
@@ -464,7 +500,6 @@ def bcj2_decode_plain(main, main_len, call, call_len, jump, jump_len, rc,
         lastc = torch.where(convq, p, lastc)
         last_top = torch.where(convq, rel >> 24, last_top)
         nconv = nconv + convq.to(torch.int64)
-        ptr = torch.where(act, take1(nxt, p + 1), ptr)
 
     out_cap = Lm + call.shape[1] + jump.shape[1]
     excl = torch.cumsum(marker, dim=1) - marker   # conversions before i

@@ -40,70 +40,9 @@ def _load(name, file):
     return mod
 
 
-random_bytes = _load("lzt_corpus", "corpus.py").random_bytes
-
-
-def _mk_batch(seed, S=5, L=4096):
-    """tests/test_device_filters.py's salted batch: every converter's
-    opcodes, x86 clusters for the prev-mask heuristic, lanes of full, short,
-    8-byte and empty ``valid``."""
-    rng = np.random.default_rng(seed)
-    data = np.frombuffer(random_bytes(S * L, seed=seed), np.uint8).reshape(
-        S, L).copy()
-    for s in range(S):
-        for _ in range(40):
-            off = int(rng.integers(0, L - 4)) & ~3
-            data[s, off + 3] = 0xEB            # ARM BL
-            off = int(rng.integers(0, L - 4)) & ~3
-            data[s, off] = 0x48                # PPC bl
-            data[s, off + 3] |= 1
-            off = int(rng.integers(0, L - 4)) & ~3
-            data[s, off] = 0x40                # SPARC call
-            data[s, off + 1] &= 0x3F
-            off = int(rng.integers(0, L - 4)) & ~1
-            data[s, off + 1] = 0xF0 | (data[s, off + 1] & 7)   # ARMT BL pair
-            data[s, off + 3] = 0xF8 | (data[s, off + 3] & 7)
-            off = int(rng.integers(0, (L - 16) // 16)) * 16    # IA64 brl
-            data[s, off] = 0x16
-            data[s, off + 1] &= 0x3F
-            data[s, off + 2] &= 0xFE
-            data[s, off + 5] = (data[s, off + 5] & 0xC3) | 0x14
-            off = int(rng.integers(0, L - 12))
-            data[s, off] = 0xE8
-            data[s, off + 4] = 0x00            # plain convertible call
-            off = int(rng.integers(0, L - 12))
-            data[s, off] = 0xE9
-            data[s, off + 4] = 0xFF            # convertible jump
-            off = int(rng.integers(0, L - 14))
-            data[s, off] = 0xE8                # candidates 2 apart
-            data[s, off + 2] = 0xE8
-            data[s, off + 6] = 0xFF
-            off = int(rng.integers(0, L - 14))
-            data[s, off] = 0xE8                # dense run
-            data[s, off + 1] = 0xE8
-            data[s, off + 2] = 0xE8
-            data[s, off + 5] = 0x00
-            data[s, off + 6] = 0x00
-    valid = np.array([L, L - 4, L - 128, 8, 0][:S], np.int32)
-    ip = np.array([0, 4096, 12345 & ~3, 0, 0][:S], np.uint32)
-    return data, valid, ip
-
-
-def _x86_edge_batch():
-    """x86 lanes the salted batch misses: valid 0-6 around the 5-byte
-    minimum, a dense E8/E9 run with 00/FF operands (the Bra86.c:58-67
-    retry), and an ip near 2^32 so positions wrap."""
-    L = 256
-    rng = np.random.default_rng(3)
-    data = rng.integers(0, 256, (9, L), dtype=np.uint8)
-    data[:7, :8] = [0xE8, 0, 0, 0, 0, 0xE8, 0xFF, 0xFF]
-    data[7, ::3] = 0xE8
-    data[7, 1::3] = 0xFF
-    data[8, ::5] = 0xE9
-    data[8, 4::5] = 0x00
-    valid = np.array([0, 1, 4, 5, 6, 7, L, L, L], np.int32)
-    ip = np.array([0] * 7 + [0xFFFFFFF0, 0xFFFFFFFE], np.uint32)
-    return data, valid, ip
+FB = _load("lzt_filter_batches", "torch_filter_batches.py")
+random_bytes = FB.random_bytes
+_mk_batch = FB.salted_batch
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -125,7 +64,7 @@ def test_branch_batch_matches_jax(name, encoding):
 
 @pytest.mark.parametrize("encoding", [True, False])
 def test_x86_edge_lanes_match_jax(encoding):
-    data, valid, ip = _x86_edge_batch()
+    data, valid, ip = FB.x86_edge_batch()
     ref = JDF.convert_batch("x86", data, valid, ip, encoding=encoding)
     out = DF.convert_batch("x86", data, valid, ip, encoding=encoding,
                            device="cpu")
@@ -133,6 +72,18 @@ def test_x86_edge_lanes_match_jax(encoding):
     assert np.array_equal(out[:3], data[:3])        # valid < 5: untouched
     for s in range(3, 9):                           # 5 bytes convert
         assert not np.array_equal(out[s], data[s]), s
+
+
+@pytest.mark.parametrize("encoding", [True, False])
+def test_x86_valid_past_row_matches_jax(encoding):
+    data, valid, ip = FB.x86_past_row_batch()
+    ref = JDF.convert_batch("x86", data, valid, ip, encoding=encoding)
+    out = DF.convert_batch("x86", data, valid, ip, encoding=encoding,
+                           device="cpu")
+    assert np.array_equal(out, ref)
+    short = DF.convert_batch("x86", data, np.minimum(valid, 64), ip,
+                             encoding=encoding, device="cpu")
+    assert not np.array_equal(out, short)     # the clamped steps convert
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -167,49 +118,13 @@ def test_delta_batch_matches_jax(dist):
 # BCJ2
 # ---------------------------------------------------------------------------
 
-def _bcj2_data(s: int, rng) -> bytes:
-    """tests/test_device_filters.py's BCJ2 corpus: random bytes salted with
-    convertible call, jump and Jcc sites."""
-    d = bytearray(random_bytes(8192 + 512 * s, seed=100 + s))
-    for _ in range(60):
-        off = int(rng.integers(0, len(d) - 8))
-        kind = int(rng.integers(0, 3))
-        if kind == 0:
-            d[off] = 0xE8
-        elif kind == 1:
-            d[off] = 0xE9
-        else:
-            d[off] = 0x0F
-            d[off + 1] = 0x80 | int(rng.integers(0, 16))
-        d[off + 5] = 0x00 if rng.integers(0, 2) else 0xFF
-    return bytes(d)
-
-
 def bcj2_batch():
-    """(streams, lens, out_size, originals): lanes 0-3 the JAX test's; 4 a
-    truncated rc stream, 5 a call stream 4 bytes short, 6 a jump stream 4
-    bytes short, 7 a main stream 1 byte short, 8 an out_size 1 byte short
-    (ok, the output cut), 9 an rc stream of 3 bytes."""
-    rng = np.random.default_rng(11)
-    datas = [_bcj2_data(s, rng) for s in range(4)]
-    lanes = [F.bcj2_encode(d) for d in datas]
-    sizes = [len(d) for d in datas]
-    m, c, j, r = lanes[0]
-    lanes += [(m, c, j, r[:len(r) // 2]), (m, c[:-4], j, r),
-              (m, c, j[:-4], r), (m[:-1], c, j, r), (m, c, j, r),
-              (m, c, j, r[:3])]
-    sizes += [sizes[0]] * 4 + [sizes[0] - 1, sizes[0]]
-
-    def pad(bufs):
-        cap = -(-max(len(b) for b in bufs) // 4) * 4
-        arr = np.zeros((len(bufs), max(cap, 8)), np.uint8)
-        for i, b in enumerate(bufs):
-            arr[i, :len(b)] = np.frombuffer(b, np.uint8)
-        return arr, np.array([len(b) for b in bufs], np.int32)
-
-    cols = [pad([t[k] for t in lanes]) for k in range(4)]
-    return ([a for a, _ in cols], [n for _, n in cols],
-            np.array(sizes, np.int32), datas)
+    """(streams, lens, out_size, originals): the corpus's four lanes, then
+    lanes 4-9 of ``bcj2_lanes``' edge cases."""
+    datas = FB.bcj2_corpus()
+    streams, lens, out_size, _ = FB.bcj2_lanes(datas, F.bcj2_encode,
+                                                edge=True)
+    return streams, lens, out_size, datas
 
 
 def _bcj2_args(streams, lens, out_size, device="cpu"):
@@ -228,13 +143,8 @@ def bcj2_plain():
 
 
 def test_bcj2_decode_batch_matches_jax(bcj2_plain):
-    import jax.numpy as jnp
     (streams, lens, out_size, datas), out, ok = bcj2_plain
-    args = []
-    for a, n in zip(streams, lens):
-        args += [jnp.asarray(a), jnp.asarray(n)]
-    ref_out, ref_ok = JDF.bcj2_decode_batch(*args, jnp.asarray(out_size))
-    ref_out, ref_ok = np.asarray(ref_out), np.asarray(ref_ok)
+    ref_out, ref_ok = _jax_bcj2(streams, lens, out_size)
     assert ok.tolist() == ref_ok.tolist()
     assert ok.tolist() == [True] * 4 + [False] * 4 + [True, False]
     assert out.shape == ref_out.shape
@@ -244,6 +154,37 @@ def test_bcj2_decode_batch_matches_jax(bcj2_plain):
         assert out[s, :len(d)].tobytes() == d, s
     assert out[8, :out_size[8]].tobytes() == datas[0][:-1]
     assert sum(int(n) for n in lens[1][:4]) > 0, "no call conversions"
+
+
+def _jax_bcj2(streams, lens, out_size):
+    import jax.numpy as jnp
+    args = []
+    for a, n in zip(streams, lens):
+        args += [jnp.asarray(a), jnp.asarray(n)]
+    ref_out, ref_ok = JDF.bcj2_decode_batch(*args, jnp.asarray(out_size))
+    return np.asarray(ref_out), np.asarray(ref_ok)
+
+
+def test_bcj2_lengths_past_rows_match_jax():
+    streams, lens, out_size = FB.bcj2_past_row_batch(F.bcj2_encode)
+    ref_out, ref_ok = _jax_bcj2(streams, lens, out_size)
+    out, ok = DF.bcj2_decode_batch(*_bcj2_args(streams, lens, out_size))
+    assert ok.tolist() == ref_ok.tolist() == [True] * 3 + [False]
+    for s in np.flatnonzero(ref_ok):
+        assert np.array_equal(out[s].numpy(), ref_out[s]), s
+
+
+def test_bcj2_main_ending_on_a_site():
+    """A site in a row's last byte ends the plain scan (the JAX function's
+    never ends there, so the host decoder is the reference)."""
+    streams, lens, out_size, datas = FB.bcj2_site_at_end(F.bcj2_encode)
+    assert streams[0].shape[1] == 256 and (lens[0] == 256).all()
+    out, ok = DF.bcj2_decode_batch(*_bcj2_args(streams, lens, out_size))
+    assert ok.all()
+    for s, d in enumerate(datas):
+        args = [streams[k][s, :lens[k][s]].tobytes() for k in range(4)]
+        assert F.bcj2_decode(*args, len(d)) == d
+        assert out[s, :len(d)].numpy().tobytes() == d
 
 
 def test_bcj2_plain_matches_host_decoder(bcj2_plain):
@@ -265,35 +206,38 @@ def harness():
         pytest.skip("g++ not available")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lzt_x86_batch_cpu.restype = ctypes.c_int
-    lib.lzt_x86_batch_cpu.argtypes = [P, L, P, P, I, I]
+    lib.lzt_x86_batch_cpu.argtypes = [P, P, L, P, P, I, I]
     lib.lzt_bcj2_batch_cpu.restype = ctypes.c_int
     lib.lzt_bcj2_batch_cpu.argtypes = [P, I, P] * 4 + [P, P, I, P, I]
     return lib
 
 
 def _harness_x86(lib, data, valid, ip, encoding):
-    out = torch.from_numpy(data.copy())
+    inp = torch.from_numpy(data.copy())
+    out = inp.clone()
     v = torch.from_numpy(valid.astype(np.int32))
     i = torch.from_numpy(ip.astype(np.int64))
-    assert lib.lzt_x86_batch_cpu(out.data_ptr(), data.shape[1], v.data_ptr(),
-                                 i.data_ptr(), data.shape[0],
+    assert lib.lzt_x86_batch_cpu(inp.data_ptr(), out.data_ptr(), data.shape[1],
+                                 v.data_ptr(), i.data_ptr(), data.shape[0],
                                  int(encoding)) == 0
     return out.numpy()
 
 
-@pytest.mark.parametrize("batch", ["salted", "edge"])
+X86_BATCHES = {"salted": lambda: _mk_batch(seed=5),
+               "edge": FB.x86_edge_batch, "past_row": FB.x86_past_row_batch}
+
+
+@pytest.mark.parametrize("batch", list(X86_BATCHES))
 @pytest.mark.parametrize("encoding", [True, False])
 def test_harness_x86_matches_plain(harness, batch, encoding):
-    data, valid, ip = (_mk_batch(seed=5) if batch == "salted"
-                       else _x86_edge_batch())
+    data, valid, ip = X86_BATCHES[batch]()
     plain = DF.convert_batch("x86", data, valid, ip, encoding=encoding,
                              device="cpu")
     assert np.array_equal(_harness_x86(harness, data, valid, ip, encoding),
                           plain)
 
 
-def test_harness_bcj2_matches_plain(harness, bcj2_plain):
-    (streams, lens, out_size, _), out, ok = bcj2_plain
+def _harness_bcj2(lib, streams, lens, out_size):
     S = len(out_size)
     cap = sum(a.shape[1] for a in streams[:3])
     h_out = torch.zeros((S, cap), dtype=torch.uint8)
@@ -304,12 +248,29 @@ def test_harness_bcj2_matches_plain(harness, bcj2_plain):
     for t, n in zip(ts, ns):
         args += [t.data_ptr(), t.shape[1], n.data_ptr()]
     osz = torch.from_numpy(out_size)
-    assert harness.lzt_bcj2_batch_cpu(*args, osz.data_ptr(),
-                                      h_out.data_ptr(), cap,
-                                      h_ok.data_ptr(), S) == 0
-    assert (h_ok.numpy() != 0).tolist() == ok.tolist()
+    assert lib.lzt_bcj2_batch_cpu(*args, osz.data_ptr(), h_out.data_ptr(),
+                                  cap, h_ok.data_ptr(), S) == 0
+    return h_out.numpy(), h_ok.numpy() != 0
+
+
+def _check_harness_bcj2(lib, streams, lens, out_size, out, ok):
+    h_out, h_ok = _harness_bcj2(lib, streams, lens, out_size)
+    assert h_ok.tolist() == ok.tolist()
     for s in np.flatnonzero(ok):
-        assert np.array_equal(h_out[s].numpy(), out[s]), s
+        assert np.array_equal(h_out[s], out[s]), s
+
+
+def test_harness_bcj2_matches_plain(harness, bcj2_plain):
+    (streams, lens, out_size, _), out, ok = bcj2_plain
+    _check_harness_bcj2(harness, streams, lens, out_size, out, ok)
+
+
+@pytest.mark.parametrize("batch", ["past_row", "site_at_end"])
+def test_harness_bcj2_edge_rows_match_plain(harness, batch):
+    batch = (FB.bcj2_past_row_batch(F.bcj2_encode) if batch == "past_row"
+             else FB.bcj2_site_at_end(F.bcj2_encode)[:3])
+    out, ok = DF.bcj2_decode_batch(*_bcj2_args(*batch))
+    _check_harness_bcj2(harness, *batch, out.numpy(), ok.numpy())
 
 
 def test_device_cuda_needs_a_card():
@@ -324,16 +285,19 @@ def test_device_cuda_needs_a_card():
 def test_kernels_match_plain_on_card(bcj2_plain):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for batch in (_mk_batch(seed=5), _x86_edge_batch()):
+    for make in X86_BATCHES.values():
         for encoding in (True, False):
-            plain = DF.convert_batch("x86", *batch, encoding=encoding,
+            plain = DF.convert_batch("x86", *make(), encoding=encoding,
                                      device="cpu")
-            kern = DF.convert_batch("x86", *batch, encoding=encoding)
+            kern = DF.convert_batch("x86", *make(), encoding=encoding)
             assert np.array_equal(kern, plain)
-    (streams, lens, out_size, _), out, ok = bcj2_plain
-    k_out, k_ok = DF.bcj2_decode_batch(*_bcj2_args(streams, lens, out_size,
-                                                   "cuda"))
-    torch.cuda.synchronize()
-    assert k_ok.cpu().numpy().tolist() == ok.tolist()
-    for s in np.flatnonzero(ok):
-        assert np.array_equal(k_out[s].cpu().numpy(), out[s]), s
+    (streams, lens, out_size, _), _out, _ok = bcj2_plain
+    for batch in ((streams, lens, out_size),
+                  FB.bcj2_past_row_batch(F.bcj2_encode),
+                  FB.bcj2_site_at_end(F.bcj2_encode)[:3]):
+        out, ok = DF.bcj2_decode_batch(*_bcj2_args(*batch))
+        k_out, k_ok = DF.bcj2_decode_batch(*_bcj2_args(*batch, "cuda"))
+        torch.cuda.synchronize()
+        assert k_ok.cpu().tolist() == ok.tolist()
+        for s in np.flatnonzero(ok.numpy()):
+            assert torch.equal(k_out[s].cpu(), out[s]), s
