@@ -2,8 +2,9 @@
 """Drives the PyTorch/CUDA port's LZMA2 decode and encode paths, its host
 and hybrid decode and encode engines, its xz container, its match finder,
 its bit-call probes, its multi-process decode and encode (two ranks
-sharing the card), its device CRC and batched filters and its one-call
-raw-LZMA API on one NVIDIA GPU.
+sharing the card), its device CRC and batched filters, its one-call
+raw-LZMA API and its 7z container and streaming decoders (on the GPU
+host's CPU) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -148,6 +149,20 @@ Phases, each printed as one JSON line:
    launched), ``compress``/``uncompress`` of 8 MiB at level 5 (read back by
    Python's ``lzma``), a ``.lzma86`` round trip of 4 MiB, and
    ``lzma2_compress_stream`` fed in 1 MiB pieces equal to one piece.
+20. sevenzip (the host's CPU, no kernel): ``sevenzip.write`` of four
+   archives with encoded headers (the writer takes one method and one
+   pre-filter an archive): 16 MiB of phase 3's data in 8 files and an
+   empty file (solid LZMA2), 8 MiB of ``x86_like`` (LZMA2 + BCJ), 2 MiB
+   (LZMA + BCJ2) and 2 MiB of ``english_like`` (PPMd); each extracted with
+   ``extract`` and with ``extract_streaming`` (which must refuse the PPMd
+   folder, as the JAX package's does), every file equal to its original;
+   the growth of peak RSS (``/proc/self/statm`` read every millisecond) of
+   ``extract_streaming`` and of ``extract`` over the first three
+   archives, each in a fresh interpreter, the first under half the
+   second; the solid archive carved out of a 1 MiB host file;
+   phase 9's xz image through ``XzStreamDecoder`` in 64 KiB pieces and
+   phase 3's stream through ``decompressobj("lzma2")`` in 1 MiB pieces,
+   each equal to the data, MB/s beside phase 9's and phase 3's.
 
 Decode streams are made with Python's ``lzma`` module (raw LZMA2, preset 6),
 one compression per group, so the original bytes are the ground truth.
@@ -1028,11 +1043,12 @@ def host_engines(stream: bytes, prop: int, data: bytes, main_mb_s: float,
     return [host, hyb, one, abort]
 
 
-def xz_phase(data: bytes, device) -> dict:
+def xz_phase(data: bytes, device) -> tuple[dict, bytes]:
     """The port's xz writer on the main data (1 MiB dictionary and chunk,
     one block, crc64, every core), read back by Python's ``lzma`` and by
     the port's reader on the card; then a one-block image from Python's
-    ``lzma`` (one group of 1 MiB) read on the card."""
+    ``lzma`` (one group of 1 MiB) read on the card.  Returns the result and
+    the image (phase 20 streams it)."""
     from lzma_sdk_zliblike_tpu_torch.containers import xz
     t = time.perf_counter()
     img = xz.encode(data, check="crc64", dict_size=MIB, chunk_size=MIB,
@@ -1050,7 +1066,7 @@ def xz_phase(data: bytes, device) -> dict:
            "python_lzma_equal": lzma_equal, **run, "liblzma_block": srun}
     res["pass"] = (lzma_equal and blocks == 1 and run["pass"]
                    and srun["pass"])
-    return res
+    return res, img
 
 
 def xz_steps(img: bytes, data: bytes, device) -> dict:
@@ -1897,7 +1913,8 @@ def one_call(data: bytes, device) -> dict:
     4 MiB of ``x86_like`` (the filter it chose reported);
     ``lzma2_compress_stream``
     of 8 MiB fed in 1 MiB pieces equal to the same fed in one piece, read
-    back by Python's ``lzma``; a device engine name refused."""
+    Python's ``lzma``.
+"""
     import lzma_sdk_zliblike_tpu_torch as T
     from lzma_sdk_zliblike_tpu_torch import api
     from lzma_sdk_zliblike_tpu_torch.containers import lzma86
@@ -1950,6 +1967,181 @@ def one_call(data: bytes, device) -> dict:
                    and res["lzma86_equal"]
                    and res["stream_equal"] and res["stream_liblzma_reads_it"]
                    and res["device_engine_refused"])
+    return res
+
+
+RSS_SCRIPT = r"""
+import json, os, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from lzma_sdk_zliblike_tpu_torch import native
+from lzma_sdk_zliblike_tpu_torch.containers import sevenzip as SZ
+from lzma_sdk_zliblike_tpu_torch.streams import extract7z
+native._load()
+mode, out_dir, paths = sys.argv[2], sys.argv[3], sys.argv[4:]
+page = os.sysconf("SC_PAGE_SIZE")
+
+
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * page
+
+
+before = rss()
+peak, done = [before], threading.Event()
+
+
+def sample():
+    while not done.is_set():
+        peak[0] = max(peak[0], rss())
+        time.sleep(0.001)
+
+
+th = threading.Thread(target=sample)
+th.start()
+n = 0
+try:
+    for i, path in enumerate(paths):
+        if mode == "streaming":
+            extract7z.extract_streaming(path, os.path.join(out_dir, str(i)))
+        else:
+            files = SZ.extract(open(path, "rb").read())
+            n += sum(map(len, files.values()))
+            del files
+finally:
+    done.set()
+    th.join()
+print("RSS " + json.dumps({"before": before, "peak": max(peak[0], rss()),
+                           "bytes": n}), flush=True)
+"""
+
+
+def rss_growth(mode: str, paths: list, out_dir: str) -> dict:
+    """Growth of peak RSS over the RSS before, in a fresh interpreter that
+    has imported the port and loaded its native runtime, while ``mode``
+    ("streaming" or "extract") extracts the archives at ``paths`` one
+    after another; RSS is read from ``/proc/self/statm`` every
+    millisecond."""
+    r = subprocess.run([sys.executable, "-c", RSS_SCRIPT, REPO, mode,
+                        out_dir, *paths], capture_output=True, text=True,
+                       timeout=600, cwd=REPO)
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RSS ")]
+    if r.returncode != 0 or not line:
+        raise RuntimeError(f"rss {mode}: exit {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    res = json.loads(line[0][4:])
+    res["growth_mib"] = (res["peak"] - res["before"]) / MIB
+    return res
+
+
+def sevenzip_phase(tmp: str, data: bytes, xz_img: bytes, stream: bytes,
+                   prop: int, xz_mb_s: float, main_mb_s: float) -> dict:
+    """Phase 20: the 7z container, the streaming extractor and the
+    streaming decoders, on the host.  ``sevenzip.write`` takes one method
+    and one pre-filter an archive (in both packages), so four archives
+    (``encode_header=True``, the writer's 1 MiB dictionary): 16 MiB of
+    ``big_mixed`` in 8 files and an empty file (solid LZMA2), 8 MiB of
+    ``x86_like`` (LZMA2 + BCJ), 2 MiB (LZMA + BCJ2) and 2 MiB of
+    ``english_like`` (PPMd).  Each is extracted with ``extract`` and with
+    ``extract_streaming`` (the PPMd one must be refused there, as the JAX
+    package refuses it) and every file compared; the growth of peak RSS
+    of each way over the first three, each in a fresh interpreter; the
+    solid archive carved out of a 1 MiB host file; phase 9's xz image
+    through ``XzStreamDecoder`` in 64 KiB pieces and phase 3's LZMA2
+    stream through ``decompressobj("lzma2")`` in 1 MiB pieces."""
+    from lzma_sdk_zliblike_tpu_torch.containers import sevenzip as SZ
+    from lzma_sdk_zliblike_tpu_torch.containers.xz import XzStreamDecoder
+    from lzma_sdk_zliblike_tpu_torch.streams import extract7z, zlike
+    from lzma_sdk_zliblike_tpu_torch.utils.errors import UnsupportedError
+    cm = corpus_module()
+    solid = {f"solid/part{i}.bin": data[i * 2 * MIB:(i + 1) * 2 * MIB]
+             for i in range(8)}
+    solid["empty.txt"] = b""
+    x86 = cm.x86_like(10 * MIB, seed=71)
+    archives = [
+        ("lzma2_solid", solid, dict(method=SZ.M_LZMA2)),
+        ("lzma2_bcj", {"x86/app.exe": x86[:8 * MIB]},
+         dict(method=SZ.M_LZMA2, pre_filter=SZ.M_BCJ)),
+        ("lzma_bcj2", {"x86/tool.exe": x86[8 * MIB:]},
+         dict(method=SZ.M_LZMA, pre_filter=SZ.M_BCJ2)),
+        ("ppmd", {"text/book.txt": cm.english_like(2 * MIB, seed=72)},
+         dict(method=SZ.M_PPMD)),
+    ]
+    res, ok, paths = {"archives": {}}, True, []
+    for name, files, kw in archives:
+        size = sum(map(len, files.values()))
+        t = time.perf_counter()
+        img = SZ.write(files, encode_header=True, **kw)
+        w = time.perf_counter() - t
+        path = os.path.join(tmp, name + ".7z")
+        with open(path, "wb") as f:
+            f.write(img)
+        t = time.perf_counter()
+        got = SZ.extract(img)
+        e = time.perf_counter() - t
+        r = {"bytes": size, "packed": len(img), "write_s": w,
+             "write_mb_per_s": size / w / 1e6, "extract_s": e,
+             "extract_mb_per_s": size / e / 1e6,
+             "extract_equal": got == files}
+        del got
+        out = os.path.join(tmp, "out_" + name)
+        t = time.perf_counter()
+        try:
+            names = extract7z.extract_streaming(path, out)
+        except UnsupportedError:
+            names = None
+        s = time.perf_counter() - t
+        if name == "ppmd":
+            r["streaming_refused"] = names is None
+            ok &= names is None
+        else:
+            paths.append(path)
+            back = {}
+            for n in files:
+                with open(os.path.join(out, n), "rb") as f:
+                    back[n] = f.read()
+            r.update(streaming_s=s, streaming_mb_per_s=size / s / 1e6,
+                     streaming_equal=(back == files
+                                      and sorted(names) == sorted(files)))
+            ok &= r["streaming_equal"]
+        ok &= r["extract_equal"]
+        res["archives"][name] = r
+        if name == "lzma2_solid":
+            host = cm.random_bytes(MIB, seed=73)
+            host = host[:MIB // 2] + img + host[MIB // 2:]
+            carved = SZ.carve(host)
+            res["carve_equal"] = (carved == img
+                                  and SZ.find_signature(host) == MIB // 2)
+            ok &= res["carve_equal"]
+    res["rss_streaming"] = rss_growth("streaming", paths,
+                                      os.path.join(tmp, "rss_out"))
+    res["rss_extract"] = rss_growth("extract", paths,
+                                    os.path.join(tmp, "rss_out"))
+    res["rss_ratio"] = (res["rss_streaming"]["growth_mib"]
+                        / res["rss_extract"]["growth_mib"])
+    ok &= res["rss_ratio"] < 0.5
+    pieces: list = []
+    dec = XzStreamDecoder(pieces.append)
+    t = time.perf_counter()
+    for a in range(0, len(xz_img), 64 << 10):
+        dec.feed(xz_img[a:a + (64 << 10)])
+    dec.finish()
+    s = time.perf_counter() - t
+    res["xz_stream"] = {"seconds": s, "mb_per_s": len(data) / s / 1e6,
+                        "xz_phase_mb_per_s": xz_mb_s,
+                        "equal": b"".join(pieces) == data}
+    del pieces
+    d = zlike.decompressobj("lzma2", dict_prop=prop)
+    t = time.perf_counter()
+    parts = [d.decompress(stream[a:a + MIB])
+             for a in range(0, len(stream), MIB)]
+    parts.append(d.flush())
+    s = time.perf_counter() - t
+    res["lzma2_stream"] = {"seconds": s, "mb_per_s": len(data) / s / 1e6,
+                           "main_mb_per_s": main_mb_s,
+                           "equal": b"".join(parts) == data and d.eof}
+    del parts
+    ok &= res["xz_stream"]["equal"] and res["lzma2_stream"]["equal"]
+    res["pass"] = bool(ok)
     return res
 
 
@@ -2067,7 +2259,7 @@ def main() -> int:
             failed.append(name)
 
     # -- 9. xz: the port's writer, its reader on the card ---------------------
-    p9 = xz_phase(data, device)
+    p9, xz_img = xz_phase(data, device)
     emit({"phase": "xz", **p9})
     if not p9["pass"]:
         failed.append("xz")
@@ -2127,6 +2319,17 @@ def main() -> int:
                       ("one_call", p19)):
         if not res["pass"]:
             failed.append(name)
+
+    # -- 20. 7z, the streaming extractor and the streaming decoders -------
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        p20 = sevenzip_phase(tmp, data, xz_img, stream, prop,
+                             p9["mb_per_s"], p3["mb_per_s"])
+    p20["seconds"] = time.perf_counter() - t
+    emit({"phase": "sevenzip", **p20})
+    if not p20["pass"]:
+        failed.append("sevenzip")
+    del xz_img
 
     # K1's chain bound: the longest lane's bit calls on main at the cost of
     # one dependent pure-ALU bit call that phase 7 measured

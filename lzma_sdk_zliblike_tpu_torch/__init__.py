@@ -28,8 +28,8 @@ from .parallel.distributed import (decode_groups_distributed,
 from .parallel.host_pool import decode_lzma2_mt
 from .parallel.hybrid import decode_lzma2_hybrid
 from .utils.errors import (ArchiveError, CrcError, DataError, InputEofError,
-                           LzmaError, ParamError, ProgressAborted,
-                           UnsupportedError)
+                           LzmaError, MemError, OutputEofError, ParamError,
+                           ProgressAborted, UnsupportedError)
 
 __all__ = ["compress", "uncompress", "lzma2_compress", "lzma2_uncompress",
            "encode_lzma2_device_coded",
@@ -37,5 +37,6 @@ __all__ = ["compress", "uncompress", "lzma2_compress", "lzma2_uncompress",
            "decode_lzma2_mt", "decode_lzma2_hybrid",
            "decode_groups_distributed", "encode_groups_distributed",
            "LzmaError",
-           "DataError", "CrcError", "InputEofError", "ParamError",
-           "ProgressAborted", "ArchiveError", "UnsupportedError"]
+           "DataError", "CrcError", "InputEofError", "OutputEofError",
+           "MemError", "ParamError", "ProgressAborted", "ArchiveError",
+           "UnsupportedError"]

@@ -1,7 +1,8 @@
 """.xz container: stream framing, block headers, index, integrity checks.
 
 The port's copy of the JAX package's ``containers/xz.py`` (``encode``,
-``decode``, ``read_backward``; the streaming push decoder is not ported).
+``decode``, ``read_backward`` and the streaming push decoder
+``XzStreamDecoder``).
 Parity targets in the reference: writer ``XzEnc.c`` (header ``:41-51``,
 block header ``:53-77``, index+footer ``:79-122``), the block decode of
 ``XzDec.c:604-870`` with its filter chain (``XzDec.c:375-480``), and the
@@ -14,10 +15,14 @@ budget-sized ``shape_for_groups``), host cores and the card together
 host, with the native encoder or, with ``threads``, the block-parallel one;
 its image is byte-identical to the JAX package's at the same arguments.
 Multi-block writing (``block_size=``) is supported, as there.
+``XzStreamDecoder`` decodes each block's LZMA2 payload on the host with the
+native resumable decoder (``native.Lzma2StreamDecoder``), which is always
+built: the JAX class's pure-Python fallback is not carried over.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 from .. import native
@@ -432,3 +437,247 @@ def read_backward(data: bytes) -> list[XzStreamInfo]:
         end = start
     infos.reverse()
     return infos
+
+
+# ---------------------------------------------------------------------------
+# streaming push decoder (XzUnpacker_Code state machine, XzDec.c:604-870)
+# ---------------------------------------------------------------------------
+
+class XzStreamDecoder:
+    """Incremental .xz decoder: feed bytes, collect output, bounded memory.
+
+    The reference's push parser walks STREAM_HEADER → BLOCK_HEADER → BLOCK →
+    BLOCK_FOOTER → … → INDEX → FOOTER → PADDING (``EXzState``,
+    ``Xz.h:182-192``); this class keeps the same progression.  A block's
+    LZMA2 payload goes to the native resumable decoder, which holds the
+    dictionary window and keeps no input, so memory stays within the
+    dictionary and the pieces fed.  One pre-filter (x86, ARM, ARMT, PPC,
+    SPARC, IA64 or delta) runs through ``StreamingBranchFilter``.
+
+    Usage::
+
+        dec = XzStreamDecoder(sink=chunks.append)
+        dec.feed(part1); dec.feed(part2); dec.finish()
+    """
+
+    def __init__(self, sink, *, verify: bool = True):
+        self.sink = sink
+        self.verify = verify
+        self.buf = bytearray()
+        self.state = "STREAM_HEADER"
+        self.check_id = 0
+        self.records = []
+        self.block = None
+        self.n2 = None
+        self.block_comp = 0
+        self.block_uncomp = 0
+        self.sfilter = None
+        self.finished_streams = 0
+
+    def _have(self, n: int) -> bool:
+        return len(self.buf) >= n
+
+    def _take(self, n: int) -> bytes:
+        r = bytes(self.buf[:n])
+        del self.buf[:n]
+        return r
+
+    def feed(self, data: bytes) -> None:
+        self.buf += data
+        while self._step():
+            pass
+
+    def finish(self) -> None:
+        self.feed(b"")
+        # trailing stream padding is legal
+        while self.state == "PADDING" and self._have(4):
+            if any(self.buf[:4]):
+                break
+            self._take(4)
+        if self.state == "PADDING" and not any(self.buf):
+            self.buf.clear()
+            self.state = "DONE" if self.finished_streams else self.state
+        if self.state not in ("DONE",) and not (
+                self.state == "PADDING" and self.finished_streams):
+            raise InputEofError(f"xz stream ended in state {self.state}")
+
+    def _step(self) -> bool:
+        st = self.state
+        if st == "STREAM_HEADER":
+            if not self._have(12):
+                return False
+            hdr = self._take(12)
+            self.check_id = _parse_stream_header(hdr, 0)
+            self.records = []
+            self.state = "BLOCK_HEADER"
+            return True
+        if st == "BLOCK_HEADER":
+            if not self._have(1):
+                return False
+            if self.buf[0] == 0:
+                self.state = "INDEX"
+                return True
+            size_total = (self.buf[0] + 1) * 4
+            if not self._have(size_total):
+                return False
+            blk = _parse_block_header(bytes(self.buf[:size_total]), 0)
+            self._take(size_total)
+            self._begin_block(blk)
+            return True
+        if st == "BLOCK":
+            return self._block_step()
+        if st == "BLOCK_TAIL":
+            pad = (-self.block_comp) % 4
+            csz = _CHECK_SIZES[self.check_id]
+            if not self._have(pad + csz):
+                return False
+            tail = self._take(pad + csz)
+            if any(tail[:pad]):
+                raise DataError("nonzero block padding")
+            if self.verify and csz:
+                if self._digest.digest() != tail[pad:]:
+                    raise CrcError("xz block check mismatch (streaming)")
+            self.records.append(
+                (self.block.header_size + self.block_comp + csz,
+                 self.block_uncomp))
+            self.state = "BLOCK_HEADER"
+            return True
+        if st == "INDEX":
+            return self._index_step()
+        if st == "FOOTER":
+            if not self._have(12):
+                return False
+            ftr = self._take(12)
+            if crc32(ftr[4:10]) != int.from_bytes(ftr[:4], "little"):
+                raise CrcError("footer CRC")
+            if ftr[10:12] != FOOTER_MAGIC:
+                raise DataError("bad footer magic")
+            self.finished_streams += 1
+            self.state = "PADDING"
+            return True
+        if st == "PADDING":
+            while self._have(4) and not any(self.buf[:4]):
+                self._take(4)
+            if self._have(1) and self.buf[0] != 0:
+                self.state = "STREAM_HEADER"
+                return True
+            return False
+        return False
+
+    def _begin_block(self, blk) -> None:
+        from ..streams.extract7z import StreamingBranchFilter
+        if not blk.filters or blk.filters[-1].fid != FILTER_LZMA2:
+            raise UnsupportedError("streaming: last filter must be LZMA2")
+        self.block = blk
+        self.block_comp = 0
+        self.block_uncomp = 0
+        pre = blk.filters[:-1]
+        self._digest = _DigestState(self.check_id)
+        # the block check covers the final decoded bytes (after the
+        # filters), so the digest taps the output end of the chain
+        sink = self._window_sink(self.sink)
+        self.sfilter = None
+        if pre:
+            if len(pre) != 1:
+                raise UnsupportedError("streaming: at most one pre-filter")
+            f = pre[0]
+            m = {FILTER_X86: 0x03030103, FILTER_ARM: 0x03030501,
+                 FILTER_ARMT: 0x03030701, FILTER_PPC: 0x03030205,
+                 FILTER_SPARC: 0x03030805, FILTER_IA64: 0x03030401,
+                 FILTER_DELTA: 0x03}.get(f.fid)
+            if m is None:
+                raise UnsupportedError(f"streaming filter {f.fid:#x}")
+            self.sfilter = StreamingBranchFilter(m, f.props, sink)
+            sink = self.sfilter.write
+        self.n2 = native.Lzma2StreamDecoder(
+            framing.decode_dict_prop(blk.filters[-1].props[0]))
+        self._bsink = sink
+        self.state = "BLOCK"
+
+    def _window_sink(self, sink):
+        def write(data: bytes):
+            self._digest.update(data)
+            self.block_uncomp += len(data)
+            sink(data)
+        return write
+
+    def _block_step(self) -> bool:
+        """Feed the buffered input to the block's decoder and pass on what
+        it decoded; True while it makes progress."""
+        if not self.buf:
+            return False
+        consumed = self.n2.feed(self.buf, finish=False)
+        if consumed:
+            self._take(consumed)
+            self.block_comp += consumed
+            out = self.n2.read(-1)
+            if out:
+                self._bsink(out)
+        if self.n2.done:
+            if self.sfilter is not None:
+                self.sfilter.close()
+            self.n2.close()
+            self.n2 = None
+            self.state = "BLOCK_TAIL"
+            return True
+        return bool(consumed)
+
+    def _index_step(self) -> bool:
+        # need the whole index + its CRC; parse varints incrementally
+        if not self._have(2):
+            return False
+        try:
+            pos = 1
+            cnt, pos = _read_varint(self.buf, pos)
+            recs = []
+            for _ in range(cnt):
+                a, pos = _read_varint(self.buf, pos)
+                b, pos = _read_varint(self.buf, pos)
+                recs.append((a, b))
+            while pos % 4:
+                if pos >= len(self.buf):
+                    raise InputEofError("index padding")
+                if self.buf[pos]:
+                    raise DataError("nonzero index padding")
+                pos += 1
+            if not self._have(pos + 4):
+                return False
+        except InputEofError:
+            return False
+        idx = self._take(pos)
+        stored = int.from_bytes(self._take(4), "little")
+        if crc32(idx) != stored:
+            raise CrcError("index CRC")
+        if recs != self.records:
+            raise DataError("index/blocks cross-check failed (streaming)")
+        self.state = "FOOTER"
+        return True
+
+
+class _DigestState:
+    """The rolling block check of one block (none, CRC32, CRC64 or
+    SHA-256)."""
+
+    def __init__(self, check_id: int):
+        self.check_id = check_id
+        if check_id == CHECK_SHA256:
+            self._h = hashlib.sha256()
+        else:
+            self.value = 0
+
+    def update(self, data: bytes) -> None:
+        if self.check_id == CHECK_CRC32:
+            self.value = crc32(data, self.value)
+        elif self.check_id == CHECK_CRC64:
+            self.value = crc64(data, self.value)
+        elif self.check_id == CHECK_SHA256:
+            self._h.update(data)
+
+    def digest(self) -> bytes:
+        if self.check_id == CHECK_CRC32:
+            return self.value.to_bytes(4, "little")
+        if self.check_id == CHECK_CRC64:
+            return self.value.to_bytes(8, "little")
+        if self.check_id == CHECK_SHA256:
+            return self._h.digest()
+        return b""

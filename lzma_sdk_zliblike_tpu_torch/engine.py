@@ -11,7 +11,9 @@ dict-reset groups, so it has no device route in either package.  Engines:
 
 Any other name, a device engine's among them ("tpu", "device", "hybrid"),
 raises UnsupportedError: the JAX package runs the Python codec for a device
-engine name without saying so, the port refuses it.
+engine name without saying so, the port refuses it.  The other host-only
+paths that take an engine name (``framing.decode`` and ``encode``, 7z,
+PPMd7) check it here too.
 """
 
 from __future__ import annotations
@@ -22,12 +24,12 @@ from .utils.errors import UnsupportedError
 ENGINES = ("auto", "native", "python")
 
 
-def check_engine(engine: str) -> str:
-    """``engine`` if raw LZMA runs on it; UnsupportedError otherwise."""
+def check_engine(engine: str, what: str = "raw LZMA") -> str:
+    """``engine`` if ``what`` runs on it; UnsupportedError otherwise."""
     if engine not in ENGINES:
         raise UnsupportedError(
-            f"engine {engine!r}: raw LZMA runs on the host only, one of "
-            f"{ENGINES} (one stream, no groups for a device to share)")
+            f"engine {engine!r}: {what} runs on the host only, one of "
+            f"{ENGINES} (no device route in either package)")
     return engine
 
 

@@ -141,7 +141,6 @@ def _rank_checks(world: int, rank: int, device) -> dict:
 
 def _dryrun_rank(device: str) -> None:
     """One rank of ``dryrun_multichip`` (run by ``run_local_cluster``)."""
-    import torch.distributed as dist
     from .parallel import distributed as D
     from .parallel.host_pool import encode_lzma2_mt
     from .parallel.mesh import local_device, world_and_rank
@@ -174,7 +173,7 @@ def _dryrun_rank(device: str) -> None:
               f"sharded K1 lanes == plain, 2-axis mesh {res['mesh_2d']}, "
               "sharded X2 == whole batch, distributed encode round trip ok",
               flush=True)
-    dist.destroy_process_group()
+    D.shutdown()
 
 
 def dryrun_multichip(n_ranks: int, device="cuda", *,

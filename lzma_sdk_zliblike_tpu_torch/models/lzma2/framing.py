@@ -14,7 +14,8 @@ Framing-level facts that make LZMA2 the device data-parallel unit:
 chunks with dict reset start an independently decodable *group*; the chunk
 scanner below splits a stream into such groups without decoding any payload,
 which is what the lane-parallel device decoder consumes.  ``encode`` writes
-such streams on the host (the native or the pure-Python encoder).
+such streams and ``decode`` reads them on the host (the native or the
+pure-Python coder).
 
 The dict-size prop byte maps 40 values k → ``(2 | (k & 1)) << (k // 2 + 11)``
 (``Lzma2Enc.c:423-432`` / ``Lzma2Dec.c:61-73``).
@@ -145,6 +146,21 @@ def split_groups(chunks: list[Chunk]) -> list[list[Chunk]]:
 # --------------------------------------------------------------------------
 # decode
 # --------------------------------------------------------------------------
+
+def decode(stream: bytes, dict_prop: int, *, engine: str = "auto") -> bytes:
+    """Decode a raw LZMA2 stream (no leading prop byte) on the host:
+    ``"auto"`` / ``"native"`` with the port's C++ decoder, ``"python"``
+    with the scalar reference (``decode_chunks``); any other name raises
+    UnsupportedError, where the JAX function sends it to ``decode_chunks``.
+    The device engines take a stream through ``api.lzma2_uncompress``."""
+    from ...engine import check_engine
+    dict_size = decode_dict_prop(dict_prop)
+    if check_engine(engine, "framing.decode") != "python":
+        from ... import native
+        return native.lzma2_decode(stream, dict_prop)
+    chunks, _end = scan(stream)
+    return decode_chunks(stream, chunks, dict_size=dict_size)
+
 
 def decode_chunks(stream: bytes, chunks: list[Chunk], *,
                   dict_size: int = 0xFFFFFFFF) -> bytes:

@@ -7,14 +7,18 @@ exporting op records for the range-encode kernel), ``lzt_lzma2_encode`` and
 ``lzt_lzma2_encode_ext`` (the host encoder drawing its match candidates from
 the device match finder X2), ``lzt_lzma_encode`` and ``lzt_lzma_decode``
 (raw LZMA, one stream), ``lzt_stream_enc_*`` (the bounded-memory streaming
-LZMA2 encoder, ``Lzma2StreamEncoder``) and ``lzt_crc64`` (the xz
-container's CRC64).
-The source is ``csrc/host/lzt_codec.cc``, one self-contained translation
-unit.  At first use it is built with g++ into
-``build/torch_host/liblzt_host_<hash>.so`` (the hash covers the source and
-the flags, so an edited source is rebuilt), written under a temporary name
-and renamed, so that concurrent test workers never load a half-written
-library.  There is no fallback: a missing g++ or a failed build raises.
+LZMA2 encoder, ``Lzma2StreamEncoder``), ``lzt_stream_dec_*`` and
+``lzt_stream2_dec_*`` (the resumable raw-LZMA and LZMA2 decoders,
+``LzmaStreamDecoder`` / ``Lzma2StreamDecoder``), ``lzt_ppmd7_decode`` /
+``lzt_ppmd7_encode`` (PPMd var.H, 7z method 0x030401) and ``lzt_crc64``
+(the xz container's CRC64).
+The sources are ``csrc/host/lzt_codec.cc`` and ``csrc/host/lzt_ppmd7.cc``,
+copies of the JAX package's ``native/`` files.  At first use they are built
+with g++ into one ``build/torch_host/liblzt_host_<hash>.so`` (the hash
+covers both sources and the flags, so an edited source is rebuilt), written
+under a temporary name and renamed, so that concurrent test workers never
+load a half-written library.  There is no fallback: a missing g++ or a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from .utils.errors import DataError, ParamError, raise_for_sres
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "host", "lzt_codec.cc")
+PPMD_SOURCE = os.path.join(_PKG, "csrc", "host", "lzt_ppmd7.cc")
+SOURCES = (SOURCE, PPMD_SOURCE)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
@@ -42,8 +48,10 @@ _lib: ctypes.CDLL | None = None
 
 def lib_path() -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in SOURCES:
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"liblzt_host_{h.hexdigest()[:16]}.so")
 
 
@@ -51,14 +59,14 @@ def _build(path: str) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the native host runtime "
-                           "(csrc/host/lzt_codec.cc) cannot be built")
+                           "(csrc/host/*.cc) cannot be built")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    r = subprocess.run([gxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+    r = subprocess.run([gxx, *CXX_FLAGS, "-o", tmp, *SOURCES],
                        capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE} (exit {r.returncode}):\n"
-                           f"{r.stderr[-4000:]}")
+        raise RuntimeError(f"g++ failed for {SOURCES} (exit "
+                           f"{r.returncode}):\n{r.stderr[-4000:]}")
     os.replace(tmp, path)
 
 
@@ -121,6 +129,32 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.lzt_stream_enc_drain.argtypes = [ctypes.c_void_p, u8p, ctypes.c_size_t]
     lib.lzt_stream_enc_free.restype = None
     lib.lzt_stream_enc_free.argtypes = [ctypes.c_void_p]
+    lib.lzt_stream_dec_new.restype = ctypes.c_void_p
+    lib.lzt_stream_dec_new.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+        ctypes.c_longlong]                                # lc lp pb dict size
+    lib.lzt_stream2_dec_new.restype = ctypes.c_void_p
+    lib.lzt_stream2_dec_new.argtypes = [ctypes.c_uint32]
+    for pre in ("lzt_stream_dec", "lzt_stream2_dec"):
+        for name, res, args in (
+                ("_feed", ctypes.c_longlong,
+                 [ctypes.c_void_p, u8p, ctypes.c_size_t, ctypes.c_int]),
+                ("_status", ctypes.c_int, [ctypes.c_void_p]),
+                ("_pending", ctypes.c_size_t, [ctypes.c_void_p]),
+                ("_total_out", ctypes.c_uint64, [ctypes.c_void_p]),
+                ("_read", ctypes.c_size_t,
+                 [ctypes.c_void_p, u8p, ctypes.c_size_t]),
+                ("_free", None, [ctypes.c_void_p])):
+            fn = getattr(lib, pre + name)
+            fn.restype, fn.argtypes = res, args
+    lib.lzt_ppmd7_decode.restype = ctypes.c_int
+    lib.lzt_ppmd7_decode.argtypes = [
+        u8p, ctypes.c_size_t, u8p,                        # src, props (5 B)
+        u8p, ctypes.c_size_t]                             # dst, out size
+    lib.lzt_ppmd7_encode.restype = ctypes.c_int
+    lib.lzt_ppmd7_encode.argtypes = [
+        u8p, ctypes.c_size_t, ctypes.c_int, ctypes.c_uint32,  # order, mem
+        u8p, ctypes.POINTER(ctypes.c_size_t)]             # out, inout len
     lib.lzt_crc64.restype = ctypes.c_uint64
     lib.lzt_crc64.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint64]
     lib.lzt_lzma2_group_ops.restype = ctypes.c_int
@@ -346,3 +380,131 @@ def lzma2_group_ops(data: bytes, dict_size: int, *, lc: int = 3, lp: int = 0,
     return (ops[:ops_cap.value].copy(),
             tab[:n_chunks.value * 3].reshape(-1, 3).copy(),
             body.raw[:body_cap.value])
+
+
+class _StreamDecoder:
+    """The wrapper shared by the native resumable decoders.
+
+    ``feed`` is given the caller's whole unconsumed input each call and
+    returns how much it consumed: the native side keeps no input.  Decoded
+    bytes collect in the native dictionary window, drained with ``read``.
+    """
+
+    _PREFIX = ""
+
+    def __init__(self, handle):
+        self._lib = _load()
+        self._h = handle
+        self._rbuf = (ctypes.c_uint8 * (1 << 20))()
+
+    def _call(self, name):
+        return getattr(self._lib, self._PREFIX + name)
+
+    def feed(self, data, finish: bool = False) -> int:
+        """Consume a prefix of ``data`` and return its length; raise on a
+        decode error.  Once the stream has ended, ``done`` is True and no
+        byte is consumed again."""
+        b = bytes(data)
+        c = self._call("_feed")(self._h, _as_u8p(b), len(b),
+                                1 if finish else 0)
+        st = self._call("_status")(self._h)
+        if st < 0:
+            raise_for_sres(-st)
+        return int(c)
+
+    @property
+    def done(self) -> bool:
+        return self._call("_status")(self._h) == 1
+
+    @property
+    def total_out(self) -> int:
+        return self._call("_total_out")(self._h)
+
+    def pending(self) -> int:
+        return self._call("_pending")(self._h)
+
+    def read(self, max_length: int = -1) -> bytes:
+        """Drain up to ``max_length`` decoded bytes (all that are pending
+        if it is None or negative)."""
+        out = bytearray()
+        want = self.pending() if max_length is None or max_length < 0 \
+            else max_length
+        while want > 0:
+            n = self._call("_read")(self._h, self._rbuf,
+                                    min(want, len(self._rbuf)))
+            if not n:
+                break
+            out += ctypes.string_at(self._rbuf, n)
+            want -= n
+        return bytes(out)
+
+    def close(self) -> None:
+        if self._h:
+            self._call("_free")(self._h)
+            self._h = None
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self.close()
+
+
+class LzmaStreamDecoder(_StreamDecoder):
+    """Resumable raw-LZMA decoder (the ``LzmaDec_DecodeToBuf`` role,
+    ``LzmaDec.c:840-878``) in O(dict) memory.  ``unpack_size`` None means
+    an end marker ends the stream."""
+
+    _PREFIX = "lzt_stream_dec"
+
+    def __init__(self, props: LzmaProps, unpack_size: int | None = None):
+        h = _load().lzt_stream_dec_new(
+            props.lc, props.lp, props.pb, props.dict_size,
+            -1 if unpack_size is None else unpack_size)
+        if not h:
+            raise ParamError("bad LZMA props")
+        super().__init__(h)
+
+
+class Lzma2StreamDecoder(_StreamDecoder):
+    """Resumable LZMA2 decoder (the chunk-header state machine and chunk
+    decode of ``Lzma2Dec.c:47-157``) in O(dict) memory."""
+
+    _PREFIX = "lzt_stream2_dec"
+
+    def __init__(self, dict_size: int):
+        super().__init__(_load().lzt_stream2_dec_new(dict_size))
+
+
+def ppmd7_decode(src: bytes, props: bytes, out_size: int) -> bytes:
+    """Decode ``out_size`` bytes of a PPMd7 stream (7z method 0x030401);
+    byte-identical to ``models/ppmd7/codec.py``'s reference."""
+    lib = _load()
+    dst = ctypes.create_string_buffer(max(out_size, 1))
+    r = lib.lzt_ppmd7_decode(_as_u8p(src), len(src), _as_u8p(props),
+                             ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)),
+                             out_size)
+    if r == -4:
+        raise ParamError("ppmd props")
+    if r != 0:
+        raise DataError(f"ppmd decode error {r}")
+    return dst.raw[:out_size]
+
+
+def ppmd7_encode(data: bytes, order: int, mem_size: int) -> bytes:
+    """One PPMd7 stream of ``data`` at ``order`` and ``mem_size``."""
+    lib = _load()
+    cap = max(1024, len(data) + (len(data) >> 1) + 1024)
+    while True:
+        out = ctypes.create_string_buffer(cap)
+        n = ctypes.c_size_t(cap)
+        r = lib.lzt_ppmd7_encode(_as_u8p(data), len(data), order, mem_size,
+                                 ctypes.cast(out,
+                                             ctypes.POINTER(ctypes.c_uint8)),
+                                 ctypes.byref(n))
+        if r == -90:        # the output did not fit: n holds the size needed
+            cap = n.value
+            continue
+        if r == -4:
+            raise ParamError("ppmd params")
+        if r != 0:
+            raise DataError(f"ppmd encode error {r}")
+        return out.raw[:n.value]

@@ -25,10 +25,15 @@ The gathers move host tensors over Gloo: ``finalize_chunks`` returns CPU
 tensors, and ranks may share one card, which NCCL refuses.
 ``run_local_cluster`` starts N ranks on one machine around a store the
 launcher holds, so no port is probed and released before use.
+``initialize`` registers ``shutdown`` with ``atexit``, so a rank leaves its
+process group before the interpreter exits: a rank that exits with Gloo's
+threads still joinable aborts ("terminate called without an active
+exception").
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import math
 import os
@@ -74,7 +79,9 @@ def initialize(coordinator: str | None = None,
     is 1, which ``run_local_cluster`` sets because it holds the store
     itself.  Where there is a card, the rank's card (``mesh.local_device``)
     becomes the current device before anything is allocated.  Every
-    collective of the group raises after ``timeout_s``."""
+    collective of the group raises after ``timeout_s``.  ``shutdown`` runs
+    at exit (once registered, whatever the number of calls); a process
+    ended by ``os._exit`` runs no exit handler."""
     if num_processes is None:
         num_processes = int(os.environ.get(ENV_NUM_PROCESSES, "1"))
     if num_processes <= 1:
@@ -97,6 +104,17 @@ def initialize(coordinator: str | None = None,
                           timeout=timeout, wait_for_workers=False)
     dist.init_process_group(backend, store=store, rank=process_id,
                             world_size=num_processes, timeout=timeout)
+    atexit.unregister(shutdown)         # registered once, however many calls
+    atexit.register(shutdown)
+
+
+def shutdown() -> None:
+    """Leave the default process group, joining Gloo's threads; a no-op
+    without one, so it may be called more than once.  Gloo's destroy is
+    local (it sends nothing to the peers), so it returns after a failed
+    collective or a dead peer too."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def barrier(tag: str, timeout_s: float = DEFAULT_TIMEOUT_S) -> None:

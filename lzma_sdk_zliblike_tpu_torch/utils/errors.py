@@ -2,8 +2,9 @@
 
 The reference propagates integer ``SRes`` codes through every call
 (``Types.h:25-43`` + the ``RINOK`` macro, ``Types.h:51-53``).  This package
-uses an exception hierarchy instead; each class keeps its ``SRes`` code.
-Only the classes the port raises are defined here.
+uses an exception hierarchy instead; each class keeps its ``SRes`` code,
+as the JAX package's ``utils/errors.py`` does, so that the CLIs exit with
+the reference's codes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ class DataError(LzmaError):
     """Corrupt stream (SZ_ERROR_DATA = 1)."""
 
     sres = 1
+
+
+class MemError(LzmaError):
+    """Allocation failure (SZ_ERROR_MEM = 2)."""
+
+    sres = 2
 
 
 class CrcError(LzmaError):
@@ -54,10 +61,28 @@ class OutputEofError(LzmaError):
     sres = 7
 
 
+class ReadError(LzmaError):
+    """Stream read failure (SZ_ERROR_READ = 8)."""
+
+    sres = 8
+
+
+class WriteError(LzmaError):
+    """Stream write failure (SZ_ERROR_WRITE = 9)."""
+
+    sres = 9
+
+
 class ProgressAborted(LzmaError):
     """A progress callback asked to stop (SZ_ERROR_PROGRESS = 10)."""
 
     sres = 10
+
+
+class ThreadError(LzmaError):
+    """Scheduler/executor failure (SZ_ERROR_THREAD = 12)."""
+
+    sres = 12
 
 
 class ArchiveError(LzmaError):
@@ -66,10 +91,16 @@ class ArchiveError(LzmaError):
     sres = 16
 
 
-_SRES_MAP = {cls.sres: cls for cls in (DataError, CrcError, UnsupportedError,
-                                       ParamError, InputEofError,
-                                       OutputEofError, ProgressAborted,
-                                       ArchiveError)}
+class NoArchiveError(LzmaError):
+    """No archive signature found (SZ_ERROR_NO_ARCHIVE = 17)."""
+
+    sres = 17
+
+
+_SRES_MAP = {cls.sres: cls for cls in (
+    DataError, MemError, CrcError, UnsupportedError, ParamError,
+    InputEofError, OutputEofError, ReadError, WriteError, ProgressAborted,
+    ThreadError, ArchiveError, NoArchiveError)}
 
 
 def raise_for_sres(code: int, msg: str = "") -> None:

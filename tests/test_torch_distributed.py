@@ -318,3 +318,68 @@ def test_jax_defaults_send_every_group_to_python_port_keeps_them_on_k1(
     snap = TRACE.snapshot()
     assert snap.get("scheduler.host_fallback_groups", 0) == 0
     assert snap["distributed.groups"] == 3
+
+
+TEARDOWN = r"""
+import torch, torch.distributed as dist
+from lzma_sdk_zliblike_tpu_torch.parallel import distributed as D
+D.initialize()
+t = torch.ones(1)
+dist.all_reduce(t)
+print("RESULT " + '{"rank": %d, "sum": %d}' % (D.world_and_rank()[1], int(t)),
+      flush=True)
+"""
+
+
+def test_ranks_exit_cleanly_after_teardown():
+    """Eight 2-rank clusters at once, each rank initialising, running one
+    all-reduce and returning: the exit handler that ``initialize``
+    registers leaves the group, so every rank exits with code 0 (without
+    it a rank could abort at exit with Gloo's threads still joinable)."""
+    out: dict = {}
+
+    def run(key):
+        out[key] = _cluster(2, TEARDOWN, timeout=240)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+        assert not th.is_alive()
+    for key in range(8):
+        assert [r["sum"] for r in _results(out[key])] == [2, 2], key
+        for r in out[key]:
+            assert b"terminate called" not in r.stdout, r.stdout[-3000:]
+
+
+SHUTDOWN = r"""
+import os, sys, time
+import torch, torch.distributed as dist
+from lzma_sdk_zliblike_tpu_torch.parallel import distributed as D
+D.initialize(timeout_s=float(sys.argv[1]))
+if D.world_and_rank()[1] == 1:
+    os._exit(0)
+try:
+    dist.all_reduce(torch.ones(1))
+    print("NO ERROR", flush=True)
+except Exception as e:
+    t = time.monotonic()
+    D.shutdown()
+    D.shutdown()
+    print(f"SHUTDOWN {time.monotonic() - t:.3f} {dist.is_initialized()}",
+          flush=True)
+"""
+
+
+def test_shutdown_after_failed_collective_returns():
+    """Rank 1 dies after ``initialize``; rank 0's all-reduce fails, and
+    ``shutdown`` (called twice) then returns within the group's timeout,
+    leaves no group behind, and the rank exits with code 0."""
+    timeout_s = 10
+    runs = _cluster(2, SHUTDOWN, [timeout_s], timeout=120)
+    text = runs[0].stdout.decode(errors="replace")
+    assert [r.returncode for r in runs] == [0, 0], text[-3000:]
+    line = [ln for ln in text.splitlines() if ln.startswith("SHUTDOWN ")][0]
+    assert float(line.split()[1]) < timeout_s, line
+    assert line.split()[2] == "False", line
