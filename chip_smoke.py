@@ -139,11 +139,17 @@ Phases, each printed as one JSON line:
    for x86 and BCJ2): the eight functions on the card against their plain
    versions on CPU copies and the host's ``ops/filters.py`` on the batches
    of tests/torch_filter_batches.py (salted, x86 edge and past-the-row
-   lanes, BCJ2 with truncated streams and lengths past the rows), round
-   trips; then one lane per SM of 1 MiB of ``x86_like``: x86 encode and
-   decode and BCJ2 decode of ``bcj2_encode``'s streams, counted and timed,
-   every row equal to the plain version's on CPU copies of its lane (three
-   worker processes), to the host's encode and to the input.
+   lanes, BCJ2 with truncated streams and lengths past the rows, and the
+   adversarial batches of the segmented kernels: E8 every 3 bytes, sites
+   around the kernel's span starts and in a row's last bytes, BCJ2 sites
+   after a converted 0F top), round trips; then one lane per SM of 1 MiB
+   of ``x86_like``: x86 encode and decode and BCJ2 decode of
+   ``bcj2_encode``'s streams, counted and timed, every row equal to the
+   plain version's on CPU copies of its lane (three worker processes), to
+   the host's encode and to the input, with the BCJ2 lanes' decoder steps;
+   then the x86 worst case, one lane per SM of 1 MiB with an E8 every 3
+   bytes (no sync point: every span runs from each possible entry state),
+   timed and equal to the host's encode.
 19. one_call: ``lzma2_compress`` of the 128 MiB (1 MiB dictionary and
    chunk, every core) and ``lzma2_uncompress`` of it on the card (K1
    launched), ``compress``/``uncompress`` of 8 MiB at level 5 (read back by
@@ -176,8 +182,10 @@ on phase 3; K2 has the bytes bound, which leaves out the scratch of its own
 design, and a chain bound, an estimate: the larger of its longest lane's ops
 at P1 ``lane``'s cost of a dependent shared-memory update and its longest
 chunk's bit calls at ``lane-notr``'s; X3 and X4's two kernels have their
-bytes bounds, measured on phases 17 and 18, which alone launch them).  Any
-failure exits non-zero.
+bytes bounds, measured on phases 17 and 18, which alone launch them, and
+X4's BCJ2 also a chain bound: its longest lane's range-decoder steps at
+``lane-notr``'s cost of a dependent bit call).  Any failure exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -1686,27 +1694,61 @@ def max_err(a, b) -> int:
     return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
 
 
-def device_filters(device) -> tuple[dict, list]:
+def launch_ms(fn, reps: int = 3) -> dict:
+    """ms of device time per call of each CUDA kernel that ``fn()`` launches,
+    by ``torch.profiler`` over ``reps`` calls after a warm-up, keyed by the
+    kernel's name (its last scope, up to its parameter or template
+    list)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0)
+        key = e.key.replace("(anonymous namespace)::", "")
+        name = re.split(r"[(<]", key)[0].split("::")[-1].strip()
+        if us and name:
+            out[name] = out.get(name, 0.0) + us * 1e-3 / reps
+    return out
+
+
+def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
     """Phase 18: X4 (``ops/device_filters.py``).  Each of the eight
     functions on the card against its plain version on CPU copies
     (tolerance 0) and the host's ``ops/filters.py`` per lane, on the salted
     batch of tests/torch_filter_batches.py at both directions, with encode
     then decode round-tripping; delta at distances 1, 4 and 255; x86 also
-    on the batch's edge and past-the-row lanes.  BCJ2 on the corpus lanes
-    and the six edge lanes (truncated rc, call, jump and main streams, a
-    short out_size), on the past-the-row lanes and on main streams that end
-    on a site in their rows' last byte: ``ok`` flag for flag and ``out`` on
-    every ok lane equal to the plain version's, the corpus lanes
-    equal to their originals.  Then the wide batches, one lane per SM of 1
-    MiB of ``x86_like`` (8 distinct lanes, repeated): x86 encode and decode
+    on the batch's edge and past-the-row lanes and on the adversarial
+    batches of the segmented kernel (E8 every 3 bytes, sites around its
+    span starts, sites in a row's last bytes at every ``valid`` around its
+    end).  BCJ2 on the corpus lanes and the six edge lanes (truncated rc,
+    call, jump and main streams, a short out_size), on the past-the-row
+    lanes, on main streams that end on a site in their rows' last byte and
+    on the mixed batch (sites after a converted site whose rel32 ends in
+    0F, outputs cut inside a rel32, streams that run out): ``ok`` flag for
+    flag and ``out`` on every ok lane equal to the plain version's, the
+    corpus lanes equal to their originals.  Then the wide batches, one
+    lane per SM of 1 MiB of ``x86_like`` (8 distinct lanes, repeated): x86
+    encode and decode
     and BCJ2 decode of ``bcj2_encode``'s streams, with the launch counts set
     to 0 just before; every row equal to the plain version's on CPU copies
     of its distinct lane (run in three worker processes while the rest of
     the phase runs; the decode's input is the host's encode, which must
     equal the kernel's), to the host's ``x86_convert`` and to the input;
     each kernel timed by CUDA events on them (best of 3 after a warm-up),
-    bound by its bytes.  Returns the phase line and the two X4 entries of
-    the kernels line."""
+    bound by its bytes; BCJ2 also by a chain, the longest lane's
+    range-decoder steps (``DF.bcj2_info`` of the main run) at
+    ``ns_per_step``, each launch of a submit timed alone by
+    ``torch.profiler`` (``launch_ms``).  Then the x86 worst case: one lane
+    per SM of 1 MiB with an E8 every 3 bytes (8 distinct lanes), timed,
+    equal to the host's ``x86_convert`` on each.  Returns the phase line
+    and the two X4 entries of the kernels line."""
     import multiprocessing
     import torch
     from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
@@ -1718,9 +1760,12 @@ def device_filters(device) -> tuple[dict, list]:
     # the wide batches' inputs, and their plain versions started at once
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     distinct = [cm.x86_like(MIB, seed=60 + i) for i in range(8)]
+    worst8 = FB.x86_every3_rows(8, MIB, seed=70)
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         refs = list(pool.map(lambda d: F.x86_convert(d, 0, True)[0],
                              distinct))
+        worst_refs = np.stack([np.frombuffer(r, np.uint8) for r in pool.map(
+            lambda r: F.x86_convert(r.tobytes(), 0, True)[0], worst8)])
         streams, lens, out_size, _ = FB.bcj2_lanes(
             distinct, F.bcj2_encode, edge=False, map_fn=pool.map)
     rows8 = np.stack([np.frombuffer(d, np.uint8) for d in distinct])
@@ -1751,11 +1796,22 @@ def device_filters(device) -> tuple[dict, list]:
         dec = DF.x86_convert_batch(enc, valid, ip, encoding=False)
         b_out, b_ok = DF.bcj2_decode_batch(*bargs)
         launches = dict(DF.launches)
+        b_info = DF.bcj2_info.cpu().numpy()
         enc_rows, dec_rows = enc.cpu().numpy(), dec.cpu().numpy()
         b_out, b_ok = b_out.cpu().numpy(), b_ok.cpu().numpy()
         x86_ms = best_ms(lambda: DF.x86_convert_batch(wide, valid, ip,
                                                       encoding=True))
         bcj2_ms = best_ms(lambda: DF.bcj2_decode_batch(*bargs))
+        res["launch_ms"] = {
+            "x86": launch_ms(lambda: DF.x86_convert_batch(
+                wide, valid, ip, encoding=True)),
+            "bcj2": launch_ms(lambda: DF.bcj2_decode_batch(*bargs))}
+        # the x86 worst case: no sync point past a lane's start
+        worst = torch.from_numpy(worst8[np.arange(sms) % 8]).to(device)
+        w_rows = DF.x86_convert_batch(worst, valid, ip,
+                                      encoding=True).cpu().numpy()
+        worst_ms = best_ms(lambda: DF.x86_convert_batch(worst, valid, ip,
+                                                        encoding=True))
         t = time.perf_counter()
         plain = {k: f.result() for k, f in jobs.items()}
         res["plain_wait_s"] = time.perf_counter() - t
@@ -1772,12 +1828,23 @@ def device_filters(device) -> tuple[dict, list]:
         "equal_host": bool(np.array_equal(enc_rows, refs8[lanes])),
         "roundtrip": bool(np.array_equal(dec_rows, rows)),
         "plain_enc_ms": enc_ms, "plain_dec_ms": dec_ms}
+    steps_max = int(b_info[:, 2].max())
     res["bcj2_wide"] = {
         "lanes": sms, "all_ok": bool(b_ok.all()),
         "equal_plain": bool(np.array_equal(b_ok, p_ok[lanes])
                             and np.array_equal(b_out, p_out[lanes])),
         "equal_input": bool(np.array_equal(b_out[:, :MIB], rows)),
-        "plain_ms": bcj2_plain_ms}
+        "plain_ms": bcj2_plain_ms,
+        "candidates_max": int(b_info[:, 0].max()),
+        "conversions_max": int(b_info[:, 1].max()),
+        "decoder_steps_max": steps_max,
+        "decoder_steps_per_lane": b_info[:8, 2].tolist(),
+        "chain_bound_ms": steps_max * ns_per_step * 1e-6,
+        "chain_ns_per_step": ns_per_step}
+    res["x86_worst"] = {
+        "lanes": sms, "lane_bytes": MIB, "ms": worst_ms,
+        "equal_host": bool(np.array_equal(w_rows, worst_refs[lanes])),
+        "bound_ms": 2 * worst.numel() / HBM_BYTES_PER_S * 1e3}
     x86_bytes = 2 * rows.size
     bcj2_bytes = sum(int(bargs[k].sum()) for k in (1, 3, 5, 7)) + \
         int(bargs[8].sum())
@@ -1791,6 +1858,7 @@ def device_filters(device) -> tuple[dict, list]:
     res["pass"] = (not res["mismatches"] and same["x86"] and same["bcj2"]
                    and res["x86_wide"]["equal_host"]
                    and res["x86_wide"]["roundtrip"]
+                   and res["x86_worst"]["equal_host"]
                    and res["bcj2_wide"]["all_ok"]
                    and res["bcj2_wide"]["equal_input"]
                    and launches["x86"] > 0 and launches["bcj2"] > 0)
@@ -1803,13 +1871,17 @@ def device_filters(device) -> tuple[dict, list]:
         "launches": launches["x86"], "matches_plain": same["x86"],
         "max_abs_err": err["x86"], "ms": x86_ms, "plain_ms": enc_ms,
         "plain_batch": f"{batch}, encode",
-        "bound_ms": res["x86_wide"]["bound_ms"]}, {
+        "bound_ms": res["x86_wide"]["bound_ms"],
+        "worst_case_ms": worst_ms}, {
         "name": "device_filters bcj2 (X4)", **common,
         "replaces": "lzma_sdk_zliblike_tpu/ops/device_filters.py:340",
         "launches": launches["bcj2"], "matches_plain": same["bcj2"],
         "max_abs_err": err["bcj2"], "ms": bcj2_ms,
         "plain_ms": bcj2_plain_ms, "plain_batch": batch,
-        "bound_ms": res["bcj2_wide"]["bound_ms"]}]
+        "bound_ms": res["bcj2_wide"]["bound_ms"],
+        "chain_bound_ms": res["bcj2_wide"]["chain_bound_ms"],
+        "chain_ns_per_step": ns_per_step,
+        "decoder_steps_max": steps_max}]
     return res, entries
 
 
@@ -1849,7 +1921,11 @@ def device_filters_small(device, FB, res, err) -> dict:
             if not ok:
                 res["mismatches"].append([name, encoding])
     for tag, make in (("x86_edge", FB.x86_edge_batch),
-                      ("x86_past_row", FB.x86_past_row_batch)):
+                      ("x86_past_row", FB.x86_past_row_batch),
+                      ("x86_every3", FB.x86_every3_batch),
+                      # the kernel spans 64 bytes (512 threads, 32 KiB tiles)
+                      ("x86_span_edge", lambda: FB.x86_span_edge_batch(64)),
+                      ("x86_tail", FB.x86_tail_batch)):
         for encoding in (True, False):
             plain = DF.convert_batch("x86", *make(), encoding=encoding,
                                      device="cpu")
@@ -1873,8 +1949,8 @@ def device_filters_small(device, FB, res, err) -> dict:
         res["checks"].append(["delta", dist, bool(ok)])
         if not ok:
             res["mismatches"].append(["delta", dist])
-    # BCJ2: the corpus and edge lanes, the past-the-row lanes and main
-    # streams that fill their rows and end on a site
+    # BCJ2: the corpus and edge lanes, the past-the-row lanes, main
+    # streams that fill their rows and end on a site, and the mixed batch
     datas = FB.bcj2_corpus()
     streams, lens, out_size, want_ok = FB.bcj2_lanes(datas, F.bcj2_encode,
                                                      edge=True)
@@ -1882,7 +1958,8 @@ def device_filters_small(device, FB, res, err) -> dict:
     for tag, (streams, lens, out_size) in (
             ("edge", (streams, lens, out_size)),
             ("past_row", FB.bcj2_past_row_batch(F.bcj2_encode)),
-            ("site_at_end", FB.bcj2_site_at_end(F.bcj2_encode)[:3])):
+            ("site_at_end", FB.bcj2_site_at_end(F.bcj2_encode)[:3]),
+            ("mixed", FB.bcj2_mixed_batch()[:3])):
         args = [torch.from_numpy(x) for a, n in zip(streams, lens)
                 for x in (a, n)] + [torch.from_numpy(out_size)]
         p_out, p_ok = DF.bcj2_decode_batch(*args)
@@ -2311,7 +2388,7 @@ def main() -> int:
     # -- 17-19. X3, X4 and the one-call raw-LZMA API ----------------------
     p17, k_x3 = checksum_device(data, device)
     emit({"phase": "checksum_device", **p17})
-    p18, k_x4 = device_filters(device)
+    p18, k_x4 = device_filters(device, lane_notr_ns(p7["P1"]))
     emit({"phase": "device_filters", **p18})
     p19 = one_call(data, device)
     emit({"phase": "one_call", **p19})

@@ -15,12 +15,14 @@ in any integer dtype); lanes are independent streams, and bytes from
   ``dist``, taken mod 256.
 * ``x86`` (``Bra86.c:11-85``) and BCJ2 decode (``Bcj2.c:28-127``) scan from
   one E8/E9 (or Jcc) site to the next.  On a CUDA tensor the wrapper
-  launches the hand-written kernel (``csrc/device_filters.cu``: the
-  reference's sequential machine per lane, ``csrc/filters_lane.cuh``) or
-  raises; on a CPU tensor it runs the plain version, ``x86_convert_plain`` /
+  launches the hand-written kernels (``csrc/device_filters.cu``, pieces in
+  ``csrc/filters_lane.cuh``: x86 a block per lane, a thread per stretch
+  between sync points; BCJ2 the sites listed by blocks, one thread's
+  range-decoder walk over them, the output placed by blocks) or raises; on
+  a CPU tensor it runs the plain version, ``x86_convert_plain`` /
   ``bcj2_decode_plain``, a transcription of the JAX package's lockstep
-  candidate scan in torch ops.  ``launches`` counts the kernel launches of
-  each.
+  candidate scan in torch ops.  ``launches`` counts the kernel submits of
+  each; ``bcj2_info`` holds the per-lane counts of the last BCJ2 submit.
 
 ``convert_batch`` dispatches a named branch filter over numpy arrays.  No
 caller of the package routes its filters here yet: xz and 7z filter on the
@@ -36,15 +38,19 @@ import torch
 
 _M32 = 0xFFFFFFFF
 
-launches = {"x86": 0, "bcj2": 0}   # kernel launches on the card; set to 0
+launches = {"x86": 0, "bcj2": 0}   # kernel submits on the card; set to 0
+# int32 [S, 4] on the card from the last BCJ2 submit: per lane the candidate
+# sites listed, the conversions, the range decoder's steps and ok
+bcj2_info = None
 
 # lzt_x86_batch(in, out, row, valid, ip, n_lanes, encoding, stream) and
 # lzt_bcj2_batch(main, main_w, main_len, call, call_w, call_len, jump,
-# jump_w, jump_len, rc, rc_w, rc_len, out_size, out, out_cap, ok, n_lanes,
-# stream) in csrc/device_filters.cu
+# jump_w, jump_len, rc, rc_w, rc_len, out_size, out, out_cap, ok, cand,
+# words, words_w, info, info_w, n_lanes, stream) in csrc/device_filters.cu
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _X86_ARGTYPES = [_P, _P, _L, _P, _P, _I, _I, _P]
-_BCJ2_ARGTYPES = [_P, _I, _P] * 4 + [_P, _P, _I, _P, _I, _P]
+_BCJ2_ARGTYPES = [_P, _I, _P] * 4 + [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I,
+                                     _P]
 
 
 def _lanes(data, valid, ip):
@@ -238,16 +244,18 @@ def x86_convert_batch(data, valid, ip, *, encoding: bool):
     and writes its row's last byte for every index past it, which only a
     ``valid`` above L reaches.
 
-    On a CUDA tensor this launches the kernel on the current stream (one
-    thread per lane, from ``data`` into a copy of it); on a CPU tensor it
-    runs ``x86_convert_plain``."""
+    On a CUDA tensor this launches the kernel on the current stream (a
+    block per lane that stages the row through shared memory and runs the
+    machine on many threads, each from a sync point to the next; it writes
+    every byte of the output); on a CPU tensor it runs
+    ``x86_convert_plain``."""
     _check_lanes(data, valid, ip)
     if data.device.type == "cpu":
         return x86_convert_plain(data, valid, ip, encoding=encoding)
     from . import _build
     S, L = data.shape
     src = data.contiguous()
-    out = src.clone()
+    out = torch.empty_like(src)
     v = valid.to(torch.int32).contiguous()
     i = (ip.to(torch.int64) & _M32).contiguous()
     fn = _build.library("device_filters").lzt_x86_batch
@@ -381,8 +389,11 @@ def bcj2_decode_batch(main, main_len, call, call_len, jump, jump_len, rc,
     zeros after; where it is false, the lane's row of ``out`` is
     unspecified.
 
-    On a CUDA tensor this launches the kernel on the current stream (one
-    thread per lane); on a CPU tensor it runs ``bcj2_decode_plain``."""
+    On a CUDA tensor this submits the kernels on the current stream
+    (blocks over each lane's main row list its candidate sites, one thread
+    per lane walks them with the range decoder, blocks over each output
+    row write it whole; ``bcj2_info`` keeps the per-lane counts); on a CPU
+    tensor it runs ``bcj2_decode_plain``."""
     streams = (main, call, jump, rc)
     lens = (main_len, call_len, jump_len, rc_len)
     _check_bcj2(streams, lens, out_size)
@@ -395,19 +406,35 @@ def bcj2_decode_batch(main, main_len, call, call_len, jump, jump_len, rc,
     streams = [t.contiguous() for t in streams]
     lens = [t.to(torch.int32).contiguous() for t in lens]
     osz = out_size.to(torch.int32).contiguous()
-    out = torch.zeros((S, out_cap), dtype=torch.uint8, device=main.device)
-    ok = torch.empty(S, dtype=torch.int32, device=main.device)
+    dev = main.device
+    out = torch.empty((S, out_cap), dtype=torch.uint8, device=dev)
+    ok = torch.empty(S, dtype=torch.int32, device=dev)
+    lib = _build.library("device_filters")
+    lib.lzt_bcj2_chunks.restype = lib.lzt_bcj2_words.restype = ctypes.c_int
+    lib.lzt_bcj2_chunks.argtypes = [_I]
+    lib.lzt_bcj2_words.argtypes = [_I, _I]
+    # per lane the 4 counts of bcj2_info, then a count per chunk of main
+    info = torch.empty((S, 4 + lib.lzt_bcj2_chunks(main.shape[1])),
+                       dtype=torch.int32, device=dev)
+    # the lanes' site lists (8-byte entries) and call and jump words
+    cand = torch.empty((S, main.shape[1]), dtype=torch.int64, device=dev)
+    words = torch.empty((S, lib.lzt_bcj2_words(call.shape[1], jump.shape[1])),
+                        dtype=torch.int32, device=dev)
     args = []
     for t, n in zip(streams, lens):
         args += [t.data_ptr(), t.shape[1], n.data_ptr()]
-    fn = _build.library("device_filters").lzt_bcj2_batch
+    fn = lib.lzt_bcj2_batch
     fn.restype = ctypes.c_int
     fn.argtypes = _BCJ2_ARGTYPES
-    with torch.cuda.device(main.device):
+    with torch.cuda.device(dev):
         rc_ = fn(*args, osz.data_ptr(), out.data_ptr(), out_cap, ok.data_ptr(),
-                 S, torch.cuda.current_stream(main.device).cuda_stream)
+                 cand.data_ptr(), words.data_ptr(), words.shape[1],
+                 info.data_ptr(), info.shape[1], S,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if rc_ != 0:
         raise RuntimeError(f"bcj2 kernel launch failed: CUDA error {rc_}")
+    global bcj2_info
+    bcj2_info = info[:, :4]
     launches["bcj2"] += 1
     return out, ok != 0
 

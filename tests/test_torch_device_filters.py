@@ -6,14 +6,14 @@ rows byte for byte on the same inputs: the whole ``[S, L]`` row for the
 converters and delta, padding past ``valid`` included; for BCJ2 ``ok`` flag
 for flag on every lane (truncated rc, call, jump and main streams among
 them) and ``out`` over the whole row on every lane where ``ok`` is true.
-The x86 and BCJ2 lane machines of ``csrc/filters_lane.cuh``, built for the
-CPU by the harness, must equal the plain versions; on a card, so must the
-kernels.
+The x86 and BCJ2 kernels' pieces in ``csrc/filters_lane.cuh``, built for
+the CPU by the harness and run at the kernels' block geometry, must equal
+the plain versions (``test_torch_filters_segmented.py`` runs them at other
+geometries); on a card, so must the kernels.
 """
 
 from __future__ import annotations
 
-import ctypes
 import importlib.util
 import os
 
@@ -199,28 +199,15 @@ def test_bcj2_plain_matches_host_decoder(bcj2_plain):
 # the kernels' own lane source, built for the CPU, against the plain versions
 # ---------------------------------------------------------------------------
 
+H = _load("lzt_torch_cpu_harness", "torch_cpu_harness.py")
+
+
 @pytest.fixture(scope="module")
 def harness():
-    lib = _load("lzt_torch_cpu_harness", "torch_cpu_harness.py").build()
+    lib = H.build()
     if lib is None:
         pytest.skip("g++ not available")
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lzt_x86_batch_cpu.restype = ctypes.c_int
-    lib.lzt_x86_batch_cpu.argtypes = [P, P, L, P, P, I, I]
-    lib.lzt_bcj2_batch_cpu.restype = ctypes.c_int
-    lib.lzt_bcj2_batch_cpu.argtypes = [P, I, P] * 4 + [P, P, I, P, I]
     return lib
-
-
-def _harness_x86(lib, data, valid, ip, encoding):
-    inp = torch.from_numpy(data.copy())
-    out = inp.clone()
-    v = torch.from_numpy(valid.astype(np.int32))
-    i = torch.from_numpy(ip.astype(np.int64))
-    assert lib.lzt_x86_batch_cpu(inp.data_ptr(), out.data_ptr(), data.shape[1],
-                                 v.data_ptr(), i.data_ptr(), data.shape[0],
-                                 int(encoding)) == 0
-    return out.numpy()
 
 
 X86_BATCHES = {"salted": lambda: _mk_batch(seed=5),
@@ -233,28 +220,12 @@ def test_harness_x86_matches_plain(harness, batch, encoding):
     data, valid, ip = X86_BATCHES[batch]()
     plain = DF.convert_batch("x86", data, valid, ip, encoding=encoding,
                              device="cpu")
-    assert np.array_equal(_harness_x86(harness, data, valid, ip, encoding),
+    assert np.array_equal(H.x86_batch(harness, data, valid, ip, encoding),
                           plain)
 
 
-def _harness_bcj2(lib, streams, lens, out_size):
-    S = len(out_size)
-    cap = sum(a.shape[1] for a in streams[:3])
-    h_out = torch.zeros((S, cap), dtype=torch.uint8)
-    h_ok = torch.zeros(S, dtype=torch.int32)
-    ts = [torch.from_numpy(a) for a in streams]
-    ns = [torch.from_numpy(n) for n in lens]
-    args = []
-    for t, n in zip(ts, ns):
-        args += [t.data_ptr(), t.shape[1], n.data_ptr()]
-    osz = torch.from_numpy(out_size)
-    assert lib.lzt_bcj2_batch_cpu(*args, osz.data_ptr(), h_out.data_ptr(),
-                                  cap, h_ok.data_ptr(), S) == 0
-    return h_out.numpy(), h_ok.numpy() != 0
-
-
 def _check_harness_bcj2(lib, streams, lens, out_size, out, ok):
-    h_out, h_ok = _harness_bcj2(lib, streams, lens, out_size)
+    h_out, h_ok, _ = H.bcj2_batch(lib, streams, lens, out_size)
     assert h_ok.tolist() == ok.tolist()
     for s in np.flatnonzero(ok):
         assert np.array_equal(h_out[s], out[s]), s
@@ -283,9 +254,17 @@ def test_device_cuda_needs_a_card():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(bcj2_plain):
+    """The kernels on every batch of the CPU tests, the adversarial ones of
+    the segmented design among them (E8 every 3 bytes, sites around the
+    kernel's span starts, sites in a row's last bytes at every valid, BCJ2
+    sites after a converted 0F top and cut or exhausted streams)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for make in X86_BATCHES.values():
+    x86 = dict(X86_BATCHES, every3=FB.x86_every3_batch,
+               span_edge=lambda: FB.x86_span_edge_batch(H.X86_TILE
+                                                        // H.X86_SPANS),
+               tail=FB.x86_tail_batch)
+    for make in x86.values():
         for encoding in (True, False):
             plain = DF.convert_batch("x86", *make(), encoding=encoding,
                                      device="cpu")
@@ -294,7 +273,8 @@ def test_kernels_match_plain_on_card(bcj2_plain):
     (streams, lens, out_size, _), _out, _ok = bcj2_plain
     for batch in ((streams, lens, out_size),
                   FB.bcj2_past_row_batch(F.bcj2_encode),
-                  FB.bcj2_site_at_end(F.bcj2_encode)[:3]):
+                  FB.bcj2_site_at_end(F.bcj2_encode)[:3],
+                  FB.bcj2_mixed_batch()[:3]):
         out, ok = DF.bcj2_decode_batch(*_bcj2_args(*batch))
         k_out, k_ok = DF.bcj2_decode_batch(*_bcj2_args(*batch, "cuda"))
         torch.cuda.synchronize()

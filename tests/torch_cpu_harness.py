@@ -7,6 +7,8 @@ host, so the tests can run the
 code the GPU runs.  It goes to ``build/torch_kernels_cpu/`` under a hash of
 its sources and is shared by the test files that load this module by path
 (a foreign package named ``tests`` may shadow this directory).
+``x86_batch`` and ``bcj2_batch`` call X4's two entry points on numpy
+arrays, at the kernels' block geometry unless told otherwise.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "lzma_sdk_zliblike_tpu_torch", "csrc")
@@ -42,3 +46,49 @@ def build() -> ctypes.CDLL | None:
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)
+
+
+# X4's block geometry in csrc/device_filters.cu: x86 spans a tile and tile
+# bytes, BCJ2 threads of the listing and placing blocks
+X86_SPANS, X86_TILE, BCJ2_THREADS = 512, 32768, 512
+
+
+def x86_batch(lib, data, valid, ip, encoding, spans=X86_SPANS,
+              tile=X86_TILE):
+    """``lzt_x86_batch_cpu`` over numpy lanes: the converted [S, L] rows."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.lzt_x86_batch_cpu
+    fn.restype, fn.argtypes = ctypes.c_int, [P, P, L, P, P, I, I, I, I]
+    inp = np.ascontiguousarray(data, np.uint8)
+    out = np.zeros_like(inp)
+    v = np.ascontiguousarray(valid, np.int32)
+    i = np.ascontiguousarray(ip).astype(np.int64)
+    assert fn(inp.ctypes.data, out.ctypes.data, inp.shape[1], v.ctypes.data,
+              i.ctypes.data, inp.shape[0], int(encoding), spans, tile) == 0
+    return out
+
+
+def bcj2_batch(lib, streams, lens, out_size, threads=BCJ2_THREADS):
+    """``lzt_bcj2_batch_cpu`` over numpy streams: (out [S, out_cap] uint8,
+    ok bool, info int32 [S, 4]: candidates, conversions, decoder steps,
+    ok).  ``out`` starts as 0x5A bytes, so a byte the placement misses
+    shows."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.lzt_bcj2_batch_cpu
+    fn.restype = ctypes.c_int
+    fn.argtypes = [P, I, P] * 4 + [P, P, I, P, I, P, I]
+    S = len(out_size)
+    cap = sum(a.shape[1] for a in streams[:3])
+    out = np.full((S, cap), 0x5A, np.uint8)
+    ok = np.zeros(S, np.int32)
+    info = np.zeros((S, 4), np.int32)
+    keep, args = [], []
+    for a, n in zip(streams, lens):
+        a = np.ascontiguousarray(a, np.uint8)
+        n = np.ascontiguousarray(n, np.int32)
+        keep += [a, n]
+        args += [a.ctypes.data, a.shape[1], n.ctypes.data]
+    osz = np.ascontiguousarray(out_size, np.int32)
+    assert fn(*args, osz.ctypes.data, out.ctypes.data, cap, ok.ctypes.data,
+              S, info.ctypes.data, threads) == 0
+    return out, ok != 0, info

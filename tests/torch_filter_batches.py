@@ -201,3 +201,190 @@ def bcj2_site_at_end(encode):
         datas.append(d)
     streams, lens, out_size, _ = bcj2_lanes(datas, encode, edge=False)
     return streams, lens, out_size, datas
+
+
+# ---------------------------------------------------------------------------
+# adversarial batches of the segmented kernels (csrc/filters_lane.cuh): x86
+# runs a thread from one sync point (4 bytes without E8/E9 before it) to
+# the next over tiles of a row, BCJ2 walks a list of candidate sites
+# ---------------------------------------------------------------------------
+
+def x86_every3_rows(S, L, seed):
+    """[S, L] uint8 rows with an E8 (E9 in odd rows) every 3 bytes, so no
+    position past 0 is a sync point; the byte after each holds 00 or FF
+    half the time (the machine's 00/FF tests then pass and fail in turn)."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 0xE8, (S, L), dtype=np.uint8)
+    data[:, 0::3] = 0xE8
+    data[1::2, 0::3] = 0xE9
+    ff = rng.integers(0, 4, (S, L), dtype=np.uint8)
+    data[:, 1::3] = np.where(ff[:, 1::3] == 0, 0,
+                             np.where(ff[:, 1::3] == 1, 0xFF,
+                                      data[:, 1::3]))
+    return data
+
+
+def x86_every3_batch():
+    """Four 600-byte rows of ``x86_every3_rows`` at full ``valid``, one with
+    an ip near 2^32."""
+    data = x86_every3_rows(4, 600, seed=31)
+    valid = np.full(4, 600, np.int32)
+    ip = np.array([0, 4096, 0xFFFFFFF0, 7], np.uint32)
+    return data, valid, ip
+
+
+def x86_span_edge_batch(w):
+    """Rows built around the multiples of ``w`` (>= 6), the span starts of a
+    block whose spans are ``w`` bytes wide: in row 0 a convertible E8 at
+    k*w - 4 (its patch covers the start), in row 1 at k*w - 5 (its patch
+    ends right before the start, a sync point), in row 2 an E8 at k*w - 1
+    (a site just before the start, whose operand bytes follow it), in row 3
+    an E9 right at the start after 4 plain bytes (a sync point on a site),
+    in row 4 all four mixed by k mod 4 (with FF operands), in row 5 the
+    same with dense E8 runs that the prev-mask skips.  Other bytes are
+    random and never E8/E9."""
+    L = 40 * w + 3
+    rng = np.random.default_rng(w)
+    data = rng.integers(0, 0xE8, (6, L), dtype=np.uint8)
+    for k in range(1, L // w):
+        s = k * w
+        data[0, s - 4:s + 1] = [0xE8, 0, 0, 0, 0]
+        data[1, s - 5:s] = [0xE8, 0, 0, 0, 0]
+        data[2, s - 1] = 0xE8
+        data[2, s + 3] = 0
+        data[3, s:s + 5] = [0xE9, 0, 0, 0, 0]
+        off = (-4, -5, -1, 0)[k % 4]
+        data[4, s + off] = 0xE8
+        data[4, s + off + 1:s + off + 5] = 0xFF
+        data[5, s + off:s + off + 3] = 0xE8
+        data[5, s + off + 3:s + off + 5] = 0
+    valid = np.array([L, L, L, L - 2, L, L], np.int32)
+    ip = np.array([0, 12, 0xFFFFFFF8, 1 << 31, 5, 0xFFFFFFFF], np.uint32)
+    return data, valid, ip
+
+
+def x86_tail_batch():
+    """Sites in the last 8 bytes of 64-byte rows at every ``valid`` around
+    the row's end (0, 4, 5, L, L + 4, L + 5 and 2 L): four endings, each at
+    the seven lengths, ip near 2^32 in half of them.  Only a valid past
+    L + 3 reaches the JAX function's clamped steps at the row's end."""
+    L = 64
+    ends = ([0xE8, 0, 0, 0, 0, 0xE8, 0xFF, 0xFF],
+            [0x11, 0xE9, 0xFF, 0xFF, 0xFF, 0xFF, 0x22, 0xE8],
+            [0xE8, 0xE8, 0, 0, 0xE9, 0, 0, 0],
+            [0x33, 0x44, 0x55, 0xE8, 0, 0, 0, 0xFF])
+    lens = (0, 4, 5, L, L + 4, L + 5, 2 * L)
+    rng = np.random.default_rng(41)
+    data = rng.integers(0, 256, (len(ends) * len(lens), L), dtype=np.uint8)
+    data[:, ::9] = 0xE8
+    for r, end in enumerate(ends):
+        data[r * len(lens):(r + 1) * len(lens), L - 8:] = end
+    valid = np.array(lens * len(ends), np.int32)
+    ip = np.array([0xFFFFFFFC if r % 2 else 0x100 * r
+                   for r in range(len(valid))], np.uint32)
+    return data, valid, ip
+
+
+def bcj2_encode_mixed(data: bytes) -> tuple[bytes, bytes, bytes, bytes]:
+    """BCJ2 streams of ``data`` that convert every site with 4 bytes after
+    it whose top byte is 0F, and two in three of the others by a hash of
+    the position (``ops/filters.bcj2_encode`` converts only 00/FF tops, so
+    its streams never put 0F in the decoder's prev after a conversion).
+    The range coder is the LZMA one, as there."""
+    M32 = 0xFFFFFFFF
+    main, call, jump, rc = bytearray(), bytearray(), bytearray(), bytearray()
+    probs = [1024] * 258
+    st = {"low": 0, "rng": M32, "cache": 0, "size": 1}
+
+    def shift_low():
+        low = st["low"]
+        if low < 0xFF000000 or low > M32:
+            carry = low >> 32
+            rc.append((st["cache"] + carry) & 0xFF)
+            rc.extend(bytes([(0xFF + carry) & 0xFF]) * (st["size"] - 1))
+            st["cache"], st["size"] = (low >> 24) & 0xFF, 0
+        st["size"] += 1
+        st["low"] = (low & 0x00FFFFFF) << 8
+
+    def bit(i, b):
+        p = probs[i]
+        bound = (st["rng"] >> 11) * p
+        if b:
+            st["low"] += bound
+            st["rng"] -= bound
+            probs[i] = p - (p >> 5)
+        else:
+            st["rng"] = bound
+            probs[i] = p + ((2048 - p) >> 5)
+        while st["rng"] < 1 << 24:
+            st["rng"] = (st["rng"] << 8) & M32
+            shift_low()
+
+    i, prev, n = 0, 0, len(data)
+    while i < n:
+        b = data[i]
+        main.append(b)
+        i += 1
+        site = (b & 0xFE) == 0xE8 or (prev == 0x0F and (b & 0xF0) == 0x80)
+        pidx = 2 + prev if b == 0xE8 else 0 if b == 0xE9 else 1
+        if site and i + 4 <= n and (data[i + 3] == 0x0F
+                                    or (i * 0x9E3779B1 >> 20) % 3):
+            bit(pidx, 1)
+            dest = (int.from_bytes(data[i:i + 4], "little") + i + 4) & M32
+            (call if b == 0xE8 else jump).extend(dest.to_bytes(4, "big"))
+            prev = data[i + 3]
+            i += 4
+            continue
+        if site and i < n:
+            bit(pidx, 0)
+        prev = b
+    for _ in range(5):
+        shift_low()
+    return bytes(main), bytes(call), bytes(jump), bytes(rc)
+
+
+def bcj2_every_data(n, seed):
+    """``n`` bytes with call, jump and Jcc sites whose rel32 ends in 0F and
+    is followed by an E8, an E9, a Jcc or a 0F 8x pair: every kind of site
+    that takes the decoder's prev from a converted site's top byte."""
+    rng = np.random.default_rng(seed)
+    d = bytearray(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+    tails = (b"\xe8", b"\xe9", b"\x85", b"\x0f\x84", b"\x8f")
+    for off in range(0, n - 16, 11):
+        head = (b"\xe8", b"\xe9", b"\x0f\x85")[(off // 11) % 3]
+        rel = bytes(rng.integers(0, 256, 3, dtype=np.uint8)) + b"\x0f"
+        d[off:off + 10] = (head + rel + tails[(off // 33) % 5]).ljust(
+            10, b"\x00")[:10]
+    return bytes(d)
+
+
+def bcj2_mixed_batch():
+    """BCJ2 lanes of ``bcj2_encode_mixed`` over ``bcj2_every_data``: three
+    whole lanes, then lane 0 with the output cut mid-stream (at half, right
+    before the site byte at 33, right after it, and 1 and 3 bytes into its
+    rel32, which then reaches past out_size), its call and jump streams
+    running out (cut by 4 and to nothing), its rc stream at 0, 3 and 4
+    bytes, and one lane whose main stream ends on an E8 in its row's last
+    byte.  Returns (the main, call, jump and rc rows, their lengths,
+    out_size int32, the original lanes; lanes 0-2 must decode to them)."""
+    datas = [bcj2_every_data(2000 + 137 * s, seed=50 + s) for s in range(3)]
+    lanes = [bcj2_encode_mixed(d) for d in datas]
+    m, c, j, r = lanes[0]
+    n0 = len(datas[0])
+    sizes = [len(d) for d in datas]
+    extra = [((m, c, j, r), n) for n in (n0 // 2, 33, 34, 35, 37)]
+    extra += [((m, c[:-4], j, r), n0), ((m, b"", j, r), n0),
+              ((m, c, j[:-4], r), n0), ((m, c, b"", r), n0),
+              ((m, c, j, b""), n0), ((m, c, j, r[:3]), n0),
+              ((m, c, j, r[:4]), n0)]
+    tail = datas[2] + b"\xe8"        # the longest main stream
+    extra.append((bcj2_encode_mixed(tail), len(tail)))
+    lanes += [x for x, _ in extra]
+    sizes += [n for _, n in extra]
+    cols = [pad_rows([t[k] for t in lanes]) for k in range(4)]
+    arrs, lens = [a for a, _ in cols], [n for _, n in cols]
+    # the last lane's main stream, the longest, ends on its E8 at the end
+    # of the main rows
+    arrs[0] = np.ascontiguousarray(arrs[0][:, :int(lens[0].max())])
+    assert arrs[0][-1, -1] == 0xE8 and lens[0][-1] == arrs[0].shape[1]
+    return arrs, lens, np.array(sizes, np.int32), datas
