@@ -69,8 +69,13 @@ Phases, each printed as one JSON line:
    (tolerance 0: integer programs), then each tool's ``run`` at its own
    defaults (P1 20,000 iterations, P2 2,000; CUDA events, best of 3) with
    the launch counts set to 0 just before.  Their bounds count the int32
-   (and, for mxu, f32) operations of each call from the kernel source over
-   the SMs' INT32 (FP32) lanes at the card's maximum SM clock.
+   operations of each call from the kernel source over the SMs' INT32
+   lanes at the card's maximum SM clock, and mxu's multiply-adds (2 FLOPs
+   each) over the dense fp16 tensor-core rate, 989 TFLOP/s (its bound over
+   the FP32 lanes, the design before the tensor cores, is kept beside it).
+   Each configuration is printed as a line of its own (ms, us/iter, ns a
+   call, bound) with the ptxas report of the probes' kernels (registers,
+   shared memory, spills).
 8. host engines, on phase 3's stream: ``engine="host"`` (host MT decode at
    every core, no K1 launch), ``engine="hybrid"`` at every core and at one
    host thread (``hybrid_1t``: K1's bytes must reach the output,
@@ -149,7 +154,9 @@ Phases, each printed as one JSON line:
    the host's encode and to the input, with the BCJ2 lanes' decoder steps;
    then the x86 worst case, one lane per SM of 1 MiB with an E8 every 3
    bytes (no sync point: every span runs from each possible entry state),
-   timed and equal to the host's encode.
+   timed and equal to the host's encode; then the torch-op converters
+   (arm, armt, ppc, sparc, ia64) and delta (distance 1, both ways) timed
+   on the wide x86 batch beside the bytes bound of one read and one write.
 19. one_call: ``lzma2_compress`` of the 128 MiB (1 MiB dictionary and
    chunk, every core) and ``lzma2_uncompress`` of it on the card (K1
    launched), ``compress``/``uncompress`` of 8 MiB at level 5 (read back by
@@ -819,6 +826,7 @@ SEEDS = (12345, -7000000)
 # the kernel-vs-plain size: 65 iterations reach whilecond's busy check at 64
 CHECK_ITERS = 65
 INT32_LANES, FP32_LANES = 64, 128      # per SM per clock (Hopper)
+FP16_TENSOR_FLOPS = 989e12             # dense, H100 SXM (NVIDIA data sheet)
 
 
 def max_sm_clock_hz() -> float:
@@ -827,6 +835,30 @@ def max_sm_clock_hz() -> float:
          "nounits"], capture_output=True, text=True, check=True,
         timeout=60).stdout.split()
     return float(out[0]) * 1e6
+
+
+def ptxas_kernels(log: str) -> list:
+    """Each kernel of an ``nvcc -Xptxas -v`` report: its (mangled) name,
+    registers, static shared memory and spill bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "smem_bytes": 0,
+                   "spill_store_bytes": 0, "spill_load_bytes": 0}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_store_bytes"] = int(m.group(1))
+                cur["spill_load_bytes"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 def probes(device) -> tuple[dict, dict, dict]:
@@ -879,13 +911,31 @@ def probes(device) -> tuple[dict, dict, dict]:
     runs = [C.run(n, 2000) for n in C.KERNELS]
     entries["P2"]["launches"] = C.launches
     for r in runs:
-        ops_int, ops_fp = C.operations(r["name"], r["iters"])
-        r["bound_ms"] = max(ops_int / int_rate, ops_fp / fp_rate) * 1e3
+        ops_int, mads = C.operations(r["name"], r["iters"])
+        r["bound_ms"] = max(ops_int / int_rate,
+                            2 * mads / FP16_TENSOR_FLOPS) * 1e3
+        r["bound_ms_fp32_lanes"] = max(ops_int / int_rate,
+                                       mads / fp_rate) * 1e3
     res["P2"] = runs
     for tag in ("P1", "P2"):
         e = entries[tag]
         e["ms"] = sum(r["ms"] for r in res[tag])
         e["bound_ms"] = sum(r["bound_ms"] for r in res[tag])
+        for r in res[tag]:
+            label = f"S={r['S']} {r['variant']}" if tag == "P1" else r["name"]
+            print(f"probe {tag} {label}: {r['ms']:.4f} ms, "
+                  f"{r['us_per_iter']:.4f} us/iter, {r['ns_per_call']:.3f} "
+                  f"ns/call, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_ms'] / r['ms']:.3f} of the time)", flush=True)
+    from lzma_sdk_zliblike_tpu_torch.ops import _build
+    res["ptxas"] = {n: ptxas_kernels(_build.ptxas_logs.get(n, ""))
+                    for n in ("v12_probe", "compact_probe")}
+    for n, ks in res["ptxas"].items():
+        for k in ks:
+            print(f"probe ptxas {n} {k['kernel']}: {k['registers']} "
+                  f"registers, {k['smem_bytes']} B static smem, spills "
+                  f"{k['spill_store_bytes']}/{k['spill_load_bytes']} B",
+                  flush=True)
     res["pass"] = all(entries[t]["matches_plain"] and entries[t]["launches"]
                       > 0 for t in entries)
     return res, entries["P1"], entries["P2"]
@@ -1747,8 +1797,11 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
     ``ns_per_step``, each launch of a submit timed alone by
     ``torch.profiler`` (``launch_ms``).  Then the x86 worst case: one lane
     per SM of 1 MiB with an E8 every 3 bytes (8 distinct lanes), timed,
-    equal to the host's ``x86_convert`` on each.  Returns the phase line
-    and the two X4 entries of the kernels line."""
+    equal to the host's ``x86_convert`` on each.  Then the converters (arm,
+    armt, ppc, sparc, ia64: encode) and delta (distance 1, both ways), torch
+    ops, each timed on the wide x86 batch (CUDA events, best of 3 after a
+    warm-up) beside the bytes bound of one read and one write of it.
+    Returns the phase line and the two X4 entries of the kernels line."""
     import multiprocessing
     import torch
     from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
@@ -1812,6 +1865,13 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
                                       encoding=True).cpu().numpy()
         worst_ms = best_ms(lambda: DF.x86_convert_batch(worst, valid, ip,
                                                         encoding=True))
+        # the torch-op converters and delta on the same batch
+        conv = {n: best_ms(lambda f=getattr(DF, f"{n}_convert_batch"): f(
+            wide, valid, ip, encoding=True))
+            for n in ("arm", "armt", "ppc", "sparc", "ia64")}
+        for enc in (True, False):
+            conv[f"delta1_{'enc' if enc else 'dec'}"] = best_ms(
+                lambda e=enc: DF.delta_batch(wide, valid, dist=1, encoding=e))
         t = time.perf_counter()
         plain = {k: f.result() for k, f in jobs.items()}
         res["plain_wait_s"] = time.perf_counter() - t
@@ -1852,6 +1912,9 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
                            * 1e3)
     res["bcj2_wide"].update(ms=bcj2_ms, bound_ms=bcj2_bytes / HBM_BYTES_PER_S
                             * 1e3, bytes=bcj2_bytes)
+    res["converters"] = {
+        "lanes": sms, "lane_bytes": MIB, "ms": conv,
+        "bound_ms": 2 * rows.size / HBM_BYTES_PER_S * 1e3}
     res["launches"] = launches
     same = {"x86": (small["x86"] and res["x86_wide"]["equal_plain"]),
             "bcj2": (small["bcj2"] and res["bcj2_wide"]["equal_plain"])}

@@ -14,6 +14,10 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <array>
+#include <cstring>
+#include <functional>
+#include <utility>
 #include <vector>
 
 #include "checksum_lane.cuh"
@@ -173,6 +177,438 @@ extern "C" int lzt_compact_call_cpu(void* rng, void* code, void* st, const void*
 extern "C" int lzt_compact_code0_cpu(const void* i, void* out, int seed, int n) {
   for (int k = 0; k < n; ++k)
     ((int32_t*)out)[k] = lzt::probe::compact_code0(((const int32_t*)i)[k], seed);
+  return 0;
+}
+
+// ---- the probes' kernels, thread by thread --------------------------------
+//
+// Plays one launch of v12_probe.cu (P1) or compact_probe.cu (P2) on the
+// host in the kernels' barrier schedule.  Each phase between two barriers
+// (or grid votes) runs one thread after another, first to last (rev = 0)
+// or last to first (rev = 1): a thread runs its whole phase before the next
+// one starts, the most one-sided order a barrier allows, so any read of a
+// slot that another thread writes in the same phase would show.  A phase
+// with warp collectives (mxu's mma.sync and shuffle, submask's reduction)
+// runs warp after warp, and within a warp, lane after lane up to the next
+// collective.  A phase that reads a region (a P1 table, a bcast table
+// copy, an mxu vector buffer) that it also writes is a race, whatever its
+// output: the call then returns 4.
+
+namespace {
+
+using namespace lzt::probe;
+
+// The steps of one phase: per-thread actions and warp collectives, run on
+// `barrier()` in the order above over `n` threads in warps of `warp`.
+struct Player {
+  int n, warp;
+  bool rev;
+  std::vector<std::pair<bool, std::function<void(int)>>> steps;   // (collective, fn)
+  unsigned read = 0, wrote = 0;    // the regions the phase read and wrote, as bits
+  bool race = false;
+
+  void thread(std::function<void(int)> fn) { steps.emplace_back(false, std::move(fn)); }
+  void collective(std::function<void(int)> fn) { steps.emplace_back(true, std::move(fn)); }
+  int at(int k, int m) const { return rev ? m - 1 - k : k; }
+  void barrier() {
+    for (int wk = 0; wk < n / warp; ++wk) {
+      const int w = at(wk, n / warp);
+      size_t i = 0;
+      while (i < steps.size()) {
+        size_t j = i;
+        while (j < steps.size() && !steps[j].first) ++j;     // [i, j): per-thread
+        for (int lk = 0; lk < warp; ++lk)
+          for (size_t k = i; k < j; ++k) steps[k].second(w * warp + at(lk, warp));
+        if (j < steps.size()) steps[j].second(w);
+        i = j + 1;
+      }
+    }
+    steps.clear();
+    race = race || (read & wrote) != 0;
+    read = wrote = 0;
+  }
+};
+
+// P1's row variants: S rows of 128 threads (v12_row_kernel).
+template <bool kMask, bool kFuse, bool kStore2>
+bool v12_rows(int32_t* out, int S, int iters, int V, int extra, bool rev) {
+  const int n = S * kLanes;
+  std::vector<int32_t> tbl((size_t)S * kTables * kLanes);
+  std::vector<V12Row> th(n);
+  std::vector<int32_t> cs((size_t)n * (extra > 0 ? extra : 1));
+  Player P = {n, n, rev, {}};
+  auto row_tbl = [&](int i) { return tbl.data() + (size_t)(i / kLanes) * kTables * kLanes; };
+  P.thread([&](int i) {
+    for (int t = 0; t < kTables; ++t) row_tbl(i)[t * kLanes + i % kLanes] = kProbInit;
+    th[i] = {0xFFFFFFFFu, 0, 0, 0, 0, 0, true, false};
+    for (int e = 0; e < extra; ++e) cs[(size_t)i * extra + e] = 3 + e;
+  });
+  P.barrier();
+  auto any = [&](bool (*pred)(const V12Row&)) {   // a grid vote: a barrier, then any()
+    P.barrier();
+    bool a = false;
+    for (const V12Row& s : th) a = a || pred(s);
+    return a;
+  };
+  bool busy = true;
+  for (int it = 0; it < iters && busy; ++it) {
+    if (V == kWhileCond && (it & 63) == 0)
+      busy = any([](const V12Row& s) { return s.idx < (1 << 30); });
+    P.thread([&](int i) { th[i].live = th[i].idx < 96; });
+    for (int b = 0; b < kCalls; ++b) {
+      P.thread([&, b](int i) { P.read |= v12_row_gather<kFuse>(row_tbl(i), b, th[i]); });
+      P.barrier();
+      P.thread([&, b](int i) {
+        P.wrote |= v12_row_store<kStore2>(row_tbl(i), b, i % kLanes, th[i]);
+      });
+      if (v12_store_barrier(kStore2)) P.barrier();
+      P.thread([&, b](int i) {
+        V12Row& s = th[i];
+        if (V == kLive) {
+          int32_t& c = cs[(size_t)i * extra + b % extra];
+          c = wrap_add(c, s.idx);
+        }
+        v12_row_settle<kMask>(s);
+      });
+    }
+    const bool tail = V == kTailAlways ||
+                      (V == kTailCond && any([](const V12Row& s) { return s.idx > 120; }));
+    if (tail) P.thread([&](int i) { v12_tail(th[i].rng, th[i].code); });
+  }
+  P.thread([&](int i) {
+    int32_t acc = th[i].idx;
+    for (int e = 0; V == kLive && e < extra; ++e) acc ^= cs[(size_t)i * extra + e];
+    out[i] = acc;
+  });
+  P.barrier();
+  return !P.race;
+}
+
+// P1's lane variants (v12_lane_kernel): stream s alone, rows 0..7 of out.
+template <bool kTables8>
+void v12_lanes(int32_t* out, int S, int iters) {
+  std::vector<int32_t> slots(kTables * kLanes);
+  for (int s = 0; s < S; ++s) {
+    std::fill(slots.begin(), slots.end(), kProbInit);
+    uint32_t rng = (uint32_t)out[0 * kLanes + s], code = (uint32_t)out[1 * kLanes + s];
+    int32_t idx = out[2 * kLanes + s];
+    for (int it = 0; it < iters; ++it)
+      for (int b = 0; b < kCalls; ++b)
+        v12_lane_call<kTables8>(&slots[(b % kTables) * kLanes + clip127(idx)],
+                                &slots[(b % kTables) * kLanes + (idx & 127)], rng, code, idx);
+    out[0 * kLanes + s] = (int32_t)rng;
+    out[1 * kLanes + s] = (int32_t)code;
+    out[2 * kLanes + s] = idx;
+    for (int r = 3; r < 8; ++r) out[r * kLanes + s] = 0;
+  }
+}
+
+// One P2 thread's state: its stream's (or element's) rng, code and st, the
+// value it holds (`mine`: bcast's slot, mxu's relayout input), a relayout's
+// or a reduction's result (`part`) and the slot of the call (`slot`).
+struct Compact {
+  int32_t rng, code, st, mine, part, slot;
+};
+
+bool compact_bcast(int32_t* out, int32_t seed, int iters, bool rev) {
+  constexpr int kRows = 64;
+  const int n = kRows * kLanes;
+  std::vector<int32_t> tbl((size_t)kRows * 2 * kLanes);
+  std::vector<Compact> th(n);
+  Player P = {n, n, rev, {}};
+  auto copy = [&](int i, int c) { return tbl.data() + ((size_t)(i / kLanes) * 2 + c) * kLanes; };
+  P.thread([&](int i) {
+    th[i] = {0x7FFFFF00, compact_code0(i / kLanes, seed), 3, kProbInit, 0, 0};
+    copy(i, 0)[i % kLanes] = kProbInit;
+  });
+  P.barrier();
+  for (int it = 0; it < iters; ++it)
+    for (int b = 0; b < kCalls; ++b) {
+      P.thread([&, b](int i) {
+        Compact& c = th[i];
+        const int32_t idx = compact_slot(c.st, c.code);
+        const int32_t newp = compact_alu(c.rng, c.code, c.st, copy(i, bcast_read_copy(b))[idx]);
+        c.mine = owned_slot(c.mine, i % kLanes, idx, newp);
+        copy(i, bcast_write_copy(b))[i % kLanes] = c.mine;
+        P.read |= 1u << bcast_read_copy(b);
+        P.wrote |= 1u << bcast_write_copy(b);
+      });
+      P.barrier();
+    }
+  for (int i = 0; i < n; ++i)
+    out[i] = wrap_add(wrap_add(wrap_add(th[i].rng, th[i].code), th[i].st), th[i].mine);
+  return !P.race;
+}
+
+// mma.sync.m16n8k16 on a warp's fragments, through the maps of
+// probe_lane.cuh: A and B as f16, the products summed in f32 in k order
+// onto C.  Returns false if a map misses or repeats an entry.
+bool mma_16816(const uint32_t (*a)[4], const uint32_t (*b)[2], float (*d)[4]) {
+  float A[16][16], B[16][8], D[16][8];
+  int seen_a[16][16] = {}, seen_b[16][8] = {}, seen_c[16][8] = {};
+  auto half = [](uint32_t reg, int hi) {
+    const uint16_t bits = (uint16_t)(hi ? reg >> 16 : reg);
+    _Float16 h;
+    std::memcpy(&h, &bits, 2);
+    return (float)h;
+  };
+  for (int lane = 0; lane < 32; ++lane) {
+    for (int e = 0; e < 8; ++e) {
+      const RowCol rc = mma_a_entry(lane, e);
+      A[rc.row][rc.col] = half(a[lane][e >> 1], e & 1);
+      ++seen_a[rc.row][rc.col];
+    }
+    for (int e = 0; e < 4; ++e) {
+      const RowCol rb = mma_b_entry(lane, e), rd = mma_c_entry(lane, e);
+      B[rb.row][rb.col] = half(b[lane][e >> 1], e & 1);
+      D[rd.row][rd.col] = d[lane][e];
+      ++seen_b[rb.row][rb.col];
+      ++seen_c[rd.row][rd.col];
+    }
+  }
+  for (int m = 0; m < 16; ++m)
+    for (int k = 0; k < 16; ++k)
+      if (seen_a[m][k] != 1 || (k < 8 && (seen_b[m][k] != 1 || seen_c[m][k] != 1))) return false;
+  for (int m = 0; m < 16; ++m)
+    for (int nn = 0; nn < 8; ++nn)
+      for (int k = 0; k < 16; ++k) D[m][nn] += A[m][k] * B[k][nn];
+  for (int lane = 0; lane < 32; ++lane)
+    for (int e = 0; e < 4; ++e) {
+      const RowCol rd = mma_c_entry(lane, e);
+      d[lane][e] = D[rd.row][rd.col];
+    }
+  return true;
+}
+
+// mxu (mxu_kernel; `mxu` = 1) and tpose (tpose_kernel; `mxu` = 0): one block
+// of 128 threads.
+int compact_block(int32_t* out, int32_t seed, int iters, bool mxu, bool rev) {
+  std::vector<int32_t> tbl(kLanes * kLanes);
+  std::vector<Compact> th(kLanes);
+  std::vector<uint16_t> vec(2 * kLanes);             // f16 bits, two buffers
+  std::vector<std::array<std::array<std::array<uint32_t, 4>, 8>, 2>> a(kLanes);
+  std::vector<std::array<std::array<uint32_t, 2>, 8>> bf(kLanes);
+  std::vector<std::array<std::array<std::array<float, 4>, 8>, 2>> d(kLanes);   // [tile][ks]
+  std::vector<float> send(kLanes);
+  bool maps_ok = true;
+  Player P = {kLanes, 32, rev, {}};
+  P.thread([&](int l) {
+    const int w = l >> 5, lane = l & 31;
+    for (int t = 0; t < 2; ++t)
+      for (int ks = 0; ks < 8; ++ks)
+        for (int r = 0; r < 4; ++r)
+          a[l][t][ks][r] = (mxu_a_one(w, t, ks, lane, 2 * r) ? 0x3C00u : 0u) |
+                           (mxu_a_one(w, t, ks, lane, 2 * r + 1) ? 0x3C000000u : 0u);
+    for (int j = 0; j < kLanes; ++j) tbl[j * kLanes + l] = kProbInit;
+    th[l] = {0x7FFFFF00, compact_code0(l, seed), 3, 0, 0, 0};
+  });
+  if (!mxu) P.barrier();
+  // relayout into buffer `buf` of th[l].mine, as relayout() in compact_probe.cu;
+  // `then` runs on each thread after it, in the same phase
+  auto relayout = [&](int buf, std::function<void(int)> then) {
+    P.thread([&, buf](int l) {
+      const _Float16 h = (_Float16)(float)th[l].mine;
+      std::memcpy(&vec[buf * kLanes + l], &h, 2);
+      P.wrote |= 1u << buf;
+    });
+    P.barrier();
+    P.thread([&, buf](int l) {
+      const uint32_t* v2 = reinterpret_cast<const uint32_t*>(vec.data() + buf * kLanes);
+      for (int ks = 0; ks < 8; ++ks)
+        for (int r = 0; r < 2; ++r) bf[l][ks][r] = v2[mxu_b_word(l & 31, ks, r)];
+      d[l] = {};
+      P.read |= 1u << buf;
+    });
+    P.collective([&](int w) {
+      uint32_t aw[32][4], bw[32][2];
+      float dw[32][4];
+      for (int t = 0; t < 2; ++t)
+        for (int ks = 0; ks < 8; ++ks) {
+          for (int lane = 0; lane < 32; ++lane) {
+            const int l = 32 * w + lane;
+            for (int r = 0; r < 4; ++r) aw[lane][r] = a[l][t][ks][r];
+            for (int r = 0; r < 2; ++r) bw[lane][r] = bf[l][ks][r];
+            for (int e = 0; e < 4; ++e) dw[lane][e] = d[l][t][ks][e];
+          }
+          maps_ok = mma_16816(aw, bw, dw) && maps_ok;
+          for (int lane = 0; lane < 32; ++lane)
+            for (int e = 0; e < 4; ++e) d[32 * w + lane][t][ks][e] = dw[lane][e];
+        }
+    });
+    P.thread([&](int l) {
+      const int lane = l & 31, t = mxu_send_tile(lane), e = mxu_send_elem(lane);
+      const auto& p = d[l][t];
+      send[l] = ((p[0][e] + p[1][e]) + (p[2][e] + p[3][e])) +
+                ((p[4][e] + p[5][e]) + (p[6][e] + p[7][e]));
+    });
+    P.collective([&](int w) {
+      float got[32];
+      for (int lane = 0; lane < 32; ++lane) got[lane] = send[32 * w + mxu_src_lane(lane)];
+      for (int lane = 0; lane < 32; ++lane) th[32 * w + lane].part = (int32_t)got[lane];
+    });
+    P.thread(std::move(then));
+  };
+  for (int it = 0; it < iters; ++it)
+    for (int b = 0; b < kCalls; ++b) {
+      if (!mxu) {
+        P.thread([&](int l) {
+          Compact& c = th[l];
+          const int32_t idx = compact_slot(c.st, c.code);
+          tbl[idx * kLanes + l] = compact_alu(c.rng, c.code, c.st, tbl[idx * kLanes + l]);
+        });
+        continue;
+      }
+      const int par = b & 1;
+      P.thread([&](int l) { th[l].mine = compact_slot(th[l].st, th[l].code); });
+      relayout(mxu_buffer(par, 0), [&](int l) {
+        th[l].slot = th[l].part;
+        th[l].mine = tbl[th[l].slot * kLanes + l];
+      });
+      relayout(mxu_buffer(par, 1), [&](int l) {
+        Compact& c = th[l];
+        c.mine = compact_alu(c.rng, c.code, c.st, c.part);
+      });
+      relayout(mxu_buffer(par, 2), [&](int l) { tbl[th[l].slot * kLanes + l] = th[l].part; });
+    }
+  P.barrier();
+  for (int l = 0; l < kLanes; ++l) {
+    int32_t col = 0;
+    for (int s = 0; s < kLanes; ++s) col = wrap_add(col, tbl[l * kLanes + s]);
+    out[l] = wrap_add(wrap_add(wrap_add(th[l].rng, th[l].code), th[l].st), col);
+  }
+  return !maps_ok ? 3 : P.race ? 4 : 0;
+}
+
+// submask (submask_kernel) with T threads a stream (the kernel's T is 32).
+template <int T>
+int compact_submask(int32_t* out, int32_t seed, int iters, bool rev) {
+  constexpr int kPer = kSubSlots / T;
+  const int n = kLanes * T;
+  std::vector<Compact> th(n);
+  std::vector<std::array<int32_t, kPer>> v(n);
+  bool agree = true;
+  Player P = {n, T, rev, {}};
+  P.thread([&](int i) {
+    th[i] = {0x7FFFFF00, compact_code0(i / T, seed), 3, 0, 0, 0};
+    v[i].fill(kProbInit);
+  });
+  auto reduce = [&](int s) {      // the warp reduction; every lane gets the sum
+    int32_t sum = 0;
+    for (int j = 0; j < T; ++j) sum = wrap_add(sum, th[s * T + j].part);
+    for (int j = 0; j < T; ++j) th[s * T + j].part = sum;
+  };
+  for (int it = 0; it < iters; ++it)
+    for (int b = 0; b < kCalls; ++b) {
+      P.thread([&](int i) {
+        Compact& c = th[i];
+        c.slot = compact_slot_mod(c.st, c.code, kSubSlots);
+        c.part = submask_read<T>(v[i].data(), i % T, c.slot);
+      });
+      P.collective(reduce);
+      P.thread([&](int i) {
+        Compact& c = th[i];
+        submask_select<T>(v[i].data(), i % T, c.slot, compact_alu(c.rng, c.code, c.st, c.part));
+      });
+    }
+  P.thread([&](int i) { th[i].part = submask_sum<T>(v[i].data()); });
+  P.collective(reduce);
+  P.barrier();
+  for (int s = 0; s < kLanes; ++s) {
+    const Compact& c = th[s * T];
+    for (int j = 1; j < T; ++j) {
+      const Compact& o = th[s * T + j];
+      agree = agree && o.rng == c.rng && o.code == c.code && o.st == c.st && o.part == c.part;
+    }
+    out[s] = wrap_add(wrap_add(wrap_add(c.rng, c.code), c.st), c.part);
+  }
+  return agree ? 0 : 3;
+}
+
+}  // namespace
+
+// P1 (v12_probe.cu) on the host: `variant` a V12Variant code, `extra` the N
+// of live<N>; out int32 [S, 128], zeroed by the caller (the lane variants'
+// start state).  The row variants play the kernel's threads phase by phase
+// in order `rev` (see above); 4 if a phase read a table it wrote.
+extern "C" int lzt_v12_probe_cpu(void* out_, int S, int iters, int variant, int extra,
+                                 int rev) {
+  int32_t* out = (int32_t*)out_;
+  if (S <= 0 || iters < 0 || (variant == kLive) != (extra > 0)) return 1;
+  bool ok = true;
+  switch (variant) {
+    case kMasked: ok = v12_rows<true, false, false>(out, S, iters, variant, 0, rev); break;
+    case kFused2: ok = v12_rows<true, true, true>(out, S, iters, variant, 0, rev); break;
+    case kLive: ok = v12_rows<true, true, false>(out, S, iters, variant, extra, rev); break;
+    case kBroadcast: case kTailAlways: case kTailNever: case kTailCond: case kWhile:
+    case kWhileCond:
+      ok = v12_rows<false, false, false>(out, S, iters, variant, 0, rev);
+      break;
+    case kLane: v12_lanes<true>(out, S, iters); break;
+    case kLaneNotr: v12_lanes<false>(out, S, iters); break;
+    default: return 1;
+  }
+  return ok ? 0 : 4;
+}
+
+// P2 (compact_probe.cu) on the host: `kind` 0 bcast, 1 mxu, 2 tpose, 3
+// submask; out int32 [64, 128] for bcast, [1, 128] else; `threads` is
+// submask's threads a stream (16, 32, 64 or 192; the kernel's is 32).
+// Returns 3 if the mma maps miss an entry (mxu) or a stream's lanes
+// disagree on its state (submask), 4 if a phase read a table copy (bcast)
+// or a vector buffer (mxu) that it wrote.
+extern "C" int lzt_compact_probe_cpu(int kind, int seed, void* out_, int iters, int rev,
+                                     int threads) {
+  int32_t* out = (int32_t*)out_;
+  if (iters < 0) return 1;
+  switch (kind) {
+    case 0: return compact_bcast(out, seed, iters, rev) ? 0 : 4;
+    case 1: return compact_block(out, seed, iters, true, rev);
+    case 2: return compact_block(out, seed, iters, false, rev);
+    case 3:
+      switch (threads) {
+        case 16: return compact_submask<16>(out, seed, iters, rev);
+        case 32: return compact_submask<32>(out, seed, iters, rev);
+        case 64: return compact_submask<64>(out, seed, iters, rev);
+        case 192: return compact_submask<192>(out, seed, iters, rev);
+        default: return 1;
+      }
+    default: return 1;
+  }
+}
+
+// One m16n8k16 product through the fragment maps: A (16 x 16) and B
+// (16 x 8) row-major float, rounded to f16 as they enter the lanes'
+// registers; D (16 x 8) = A B + D in f32.  Returns 3 if a map misses or
+// repeats an entry.
+extern "C" int lzt_mma_16816_cpu(const void* A_, const void* B_, void* D_) {
+  const float* A = (const float*)A_;
+  const float* B = (const float*)B_;
+  float* D = (float*)D_;
+  uint32_t a[32][4] = {}, b[32][2] = {};
+  float d[32][4];
+  auto bits = [](float f) {
+    const _Float16 h = (_Float16)f;
+    uint16_t u;
+    std::memcpy(&u, &h, 2);
+    return (uint32_t)u;
+  };
+  for (int lane = 0; lane < 32; ++lane) {
+    for (int e = 0; e < 8; ++e) {
+      const RowCol rc = mma_a_entry(lane, e);
+      a[lane][e >> 1] |= bits(A[rc.row * 16 + rc.col]) << (16 * (e & 1));
+    }
+    for (int e = 0; e < 4; ++e) {
+      const RowCol rb = mma_b_entry(lane, e), rd = mma_c_entry(lane, e);
+      b[lane][e >> 1] |= bits(B[rb.row * 8 + rb.col]) << (16 * (e & 1));
+      d[lane][e] = D[rd.row * 8 + rd.col];
+    }
+  }
+  if (!mma_16816(a, b, d)) return 3;
+  for (int lane = 0; lane < 32; ++lane)
+    for (int e = 0; e < 4; ++e) {
+      const RowCol rd = mma_c_entry(lane, e);
+      D[rd.row * 8 + rd.col] = d[lane][e];
+    }
   return 0;
 }
 

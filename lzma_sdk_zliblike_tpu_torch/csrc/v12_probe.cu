@@ -22,10 +22,15 @@
 // The TPU layout is left behind.  A row-variant block is one row s: 128
 // threads, one per lane, and the row's 8 tables (4 KB) in shared memory.
 // Every read of a table in a call comes before any write (the Pallas body
-// gathers from the old table), so each call has a barrier between its
-// gathers and its stores, and one after the stores.  A lane-variant thread
-// is one stream; its 8 x 128 table slots sit in shared memory with the
-// stream index fastest, so a warp's gathers never share a bank.  The
+// gathers from the old table), and thread l only ever writes slot l of a
+// table (probe_lane.cuh: owned_store).  Call b stores only into table
+// b % 8, and call b + 1 gathers only from tables (b + 1) % 8 and
+// (b + 2) % 8, so a call's stores and the next call's gathers share a
+// phase: each call has one barrier, between its gathers and its stores.
+// fused2 alone stores into table (b + 1) % 8 as well, the table the next
+// call reads, and keeps a second barrier after its stores.  A lane-variant
+// thread is one stream; its 8 x 128 table slots sit in shared memory with
+// the stream index fastest, so a warp's gathers never share a bank.  The
 // reductions over all S x 128 elements (tailcond, whilecond) need the whole
 // grid: those two launch cooperatively and meet at a grid barrier, voting
 // into one of three rotating global slots.
@@ -34,8 +39,9 @@
 // memory but its output), and more, the dependent chain of each call:
 // every call waits on the previous range, index and table.  The bound that
 // tools/dev_v12_probe.py reports counts the int32 operations of each
-// call from this source over 132 SMs x 64 INT32 lanes per clock.  This
-// simple design does nothing about the chain: it is what the probe measures.
+// call from this source over 132 SMs x 64 INT32 lanes per clock.  The
+// design takes the barrier that the table rotation makes needless out of
+// each row call's chain; the lane variants' chain is the probe itself.
 //
 // Built by ops/_build.py with nvcc for sm_90a into a shared library with a
 // plain C interface; tools/dev_v12_probe.py calls lzt_v12_probe through
@@ -52,15 +58,7 @@ using namespace lzt::probe;
 
 namespace {
 
-// variant codes; tools/dev_v12_probe.py's VARIANTS holds the same order
-enum Variant {
-  kBroadcast = 0, kMasked, kFused2, kLive, kTailAlways, kTailNever, kTailCond,
-  kWhile, kWhileCond, kLane, kLaneNotr
-};
-
 constexpr int kLaneBlock = 32;   // streams per block of the lane variant
-
-__device__ __forceinline__ int clip127(int32_t i) { return min(max(i, 0), kLanes - 1); }
 
 // any(pred) over every thread of the grid.  Slot k % 3 of `votes` collects
 // the k-th vote; block 0 clears the slot of vote k + 1, whose last reader
@@ -74,31 +72,6 @@ __device__ bool grid_any(bool pred, int* votes, unsigned k) {
   const bool any = *(volatile int*)slot != 0;
   if (any && blockIdx.x == 0 && threadIdx.x == 0) votes[3] += 1;
   return any;
-}
-
-// One call of the row variants on thread `l` of a row: the gather(s), the
-// adapted probability, the masked store(s) and the range update.  kFuse
-// adds the second gather, kStore2 the second store (fused2; live<N> has the
-// gather only).  Returns the gathered probability (idx advances by it).
-template <bool kMask, bool kFuse, bool kStore2>
-__device__ __forceinline__ int32_t row_call(int32_t (*tbl)[kLanes], int b, int l,
-                                            uint32_t& rng, uint32_t& code,
-                                            int32_t idx, bool live) {
-  const int t0 = b % kTables, t1 = (b + 1) % kTables;
-  int32_t p = tbl[t0][clip127(idx)];
-  if (kFuse) {
-    const int32_t p2 = tbl[t1][clip127(idx + 1)];
-    p = live ? p : p2;
-  }
-  const uint32_t bound = v12_bound(rng, p);
-  const bool bit0 = code < bound;
-  const int32_t newp = adapt(p, bit0);
-  __syncthreads();                       // every gather before any store
-  if (l == (idx & 127)) tbl[t0][l] = newp;
-  if (kStore2 && !live && l == ((idx + 1) & 127)) tbl[t1][l] = newp;
-  __syncthreads();                       // every store before the next gather
-  v12_settle(rng, code, bound, bit0, kMask ? live : true);
-  return p;
 }
 
 // The row variants: block s is row s, thread l lane l.  NREG > 0 keeps
@@ -125,30 +98,32 @@ __global__ void __launch_bounds__(kLanes) v12_row_kernel(int32_t* __restrict__ o
     }
   }
   __syncthreads();
-  uint32_t rng = 0xFFFFFFFFu, code = 0;
-  int32_t idx = 0;
+  V12Row s = {0xFFFFFFFFu, 0, 0, 0, 0, 0, true, false};
   unsigned nvote = 0;
   bool busy = true;
   for (int it = 0; it < iters && busy; ++it) {
-    if (V == kWhileCond) busy = (it & 63) != 0 || grid_any(idx < (1 << 30), votes, nvote++);
-    const bool live = idx < 96;
+    if (V == kWhileCond) busy = (it & 63) != 0 || grid_any(s.idx < (1 << 30), votes, nvote++);
+    s.live = s.idx < 96;
 #pragma unroll
     for (int b = 0; b < kCalls; ++b) {
-      const int32_t p = row_call<kMask, kFuse, V == kFused2>(tbl, b, l, rng, code, idx, live);
+      v12_row_gather<kFuse>(&tbl[0][0], b, s);
+      __syncthreads();                   // every gather of call b before any store
+      v12_row_store<V == kFused2>(&tbl[0][0], b, l, s);
+      if (v12_store_barrier(V == kFused2)) __syncthreads();   // read by call b + 1
       if (V == kLive) {
         if (NREG > 0) {
-          cs[b % kReg] = wrap_add(cs[b % kReg], idx);
+          cs[b % kReg] = wrap_add(cs[b % kReg], s.idx);
         } else {
           int32_t& c = cs_smem[(b % extra) * kLanes + l];
-          c = wrap_add(c, idx);
+          c = wrap_add(c, s.idx);
         }
       }
-      idx = wrap_add(idx, p) & 127;
+      v12_row_settle<kMask>(s);
     }
-    if (V == kTailAlways || (V == kTailCond && grid_any(idx > 120, votes, nvote++)))
-      v12_tail(rng, code);
+    if (V == kTailAlways || (V == kTailCond && grid_any(s.idx > 120, votes, nvote++)))
+      v12_tail(s.rng, s.code);
   }
-  int32_t acc = idx;
+  int32_t acc = s.idx;
   if (V == kLive) {
     if (NREG > 0) {
 #pragma unroll
@@ -185,15 +160,9 @@ __global__ void v12_lane_kernel(int32_t* __restrict__ out, int n_streams, int it
   int32_t idx = out[2 * kLanes + s];
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int b = 0; b < kCalls; ++b) {
-      const int32_t p = kTables8 ? slot(b % kTables, clip127(idx)) : (int32_t)(code & 2047u);
-      const uint32_t bound = v12_bound(rng, p);
-      const bool bit0 = code < bound;
-      const int32_t newp = adapt(p, bit0);
-      if (kTables8) slot(b % kTables, idx & 127) = newp;
-      v12_settle(rng, code, bound, bit0, true);
-      idx = wrap_add(idx, newp) & 127;
-    }
+    for (int b = 0; b < kCalls; ++b)
+      v12_lane_call<kTables8>(&slot(b % kTables, clip127(idx)), &slot(b % kTables, idx & 127),
+                              rng, code, idx);
   }
   out[0 * kLanes + s] = (int32_t)rng;
   out[1 * kLanes + s] = (int32_t)code;
@@ -231,7 +200,7 @@ cudaError_t launch_live(int32_t* out, int S, int iters, int extra, int* votes,
 }  // namespace
 
 // Launches P1 on `stream` without synchronising: `variant` is a Variant
-// code, `extra` the N of live<N>.  out is int32 [S, 128] and votes int32
+// code (V12Variant), `extra` the N of live<N>.  out is int32 [S, 128] and votes int32
 // [4] (the grid-wide reductions' slots and their count of true votes), both
 // zeroed by the caller.  Returns the CUDA error code of the attribute call
 // or the launch (0 = launched).

@@ -9,7 +9,8 @@ probability-table slot, in the four layouts of ``KERNELS``:
   row; output int32 [64, 128];
 * ``mxu``: 128 streams of compact state, a 128-slot table per stream; the
   slot index and the probabilities cross between the layouts as products
-  with a one-hot f32 matrix; output int32 [1, 128];
+  with a one-hot matrix (f32 in the plain version, f16 on the card's
+  tensor cores with an f32 sum: both exact); output int32 [1, 128];
 * ``tpose``: the same with transposes (``mxu`` and ``tpose`` give the same
   output: every value is below 2048, so the products are exact);
 * ``submask``: 128 streams, 192 slots each; the read is a masked sum over
@@ -49,11 +50,13 @@ _M32 = 0xFFFFFFFF
 # operations per call per stream (per element for bcast), counted from
 # csrc/compact_probe.cu: the ALU 26 (bound 2, bit 1, range and code update 4,
 # adapt 6, renormalisation 7, state 6), the slot 3, the gather and store
-# addresses 2; mxu adds 6 int<->f32 conversions and 3 x 128 f32 FMAs;
-# submask's slot takes 5 and its masked read and select 192 x (3 + 2).
+# addresses 2; mxu adds 6 conversions and 3 x 128 multiply-adds (a row of
+# the one-hot matrix per relayout; on the tensor cores); submask's slot
+# takes 5 and its masked read and select 192 x (3 + 2).  The same work in
+# every layout the kernels have had, so the bounds compare across them.
 _INT_OPS_PER_CALL = {"bcast": 31, "mxu": 37, "tpose": 31,
                      "submask": 26 + 5 + SUB_T * 5}
-_FP32_OPS_PER_CALL = {"bcast": 0, "mxu": 3 * 128, "tpose": 0, "submask": 0}
+_MADS_PER_CALL = {"bcast": 0, "mxu": 3 * 128, "tpose": 0, "submask": 0}
 
 # lzt_compact_probe(kind, seed, out, iters, stream) in csrc/compact_probe.cu
 _I, _P = ctypes.c_int, ctypes.c_void_p
@@ -106,13 +109,14 @@ def _launch(name: str, iters: int, seed: int, out: torch.Tensor) -> None:
 
 
 def operations(name: str, iters: int) -> tuple[int, int]:
-    """``(int32, fp32)`` operations of one launch, counted from the kernel
-    source: per call per stream (per element for bcast) times 28 calls
-    times streams (64 x 128 elements for bcast) times iterations."""
+    """``(int32 operations, multiply-adds)`` of one launch, counted from the
+    kernel source: per call per stream (per element for bcast) times 28
+    calls times streams (64 x 128 elements for bcast) times iterations.
+    The multiply-adds are mxu's products with the one-hot matrix."""
     _check(name, iters, 0)
     elems = KERNELS[name] * 128 if name == "bcast" else KERNELS[name]
     n = NCALLS * elems * iters
-    return _INT_OPS_PER_CALL[name] * n, _FP32_OPS_PER_CALL[name] * n
+    return _INT_OPS_PER_CALL[name] * n, _MADS_PER_CALL[name] * n
 
 
 def run(name: str, iters: int) -> dict:
