@@ -135,11 +135,16 @@ Phases, each printed as one JSON line:
    against one call on the CPU, a distributed encode round trip) and
    ``entry()``'s K1 call on the card, each lane against its original.
 17. checksum_device: X3 (``ops/checksum.py``, ``csrc/checksum.cu``) at
-   sizes 0 to 1 MiB and two init values each, equal to ``binascii.crc32``
-   and ``native.crc64``, its block states and combine equal to the plain
-   versions on CPU copies; then CRC64 and CRC32 of the 128 MiB on the card
-   (counted), the kernels timed by CUDA events, the whole call and the
-   hosts' CRCs on the host clock; bound: the bytes at 3.35 TB/s.
+   sizes 0 B to 129 MiB (the tile and piece boundaries +- 1 among them)
+   and two init values each, equal to ``binascii.crc32`` and
+   ``native.crc64``, its tile states and fold equal to the plain versions
+   on CPU copies; then CRC64 and CRC32 of the 128 MiB on the card
+   (counted), the tile launch and the fold timed by CUDA events, the whole
+   call (and the 129 MiB one) and the hosts' CRCs on the host clock, the
+   call's parts alone (the host's copy into pinned memory, the link, one
+   pinned copy of the whole: the link bound, and the caller's buffer
+   registered in place instead), the kernels' ptxas report; bound: the
+   bytes at 3.35 TB/s.
 18. device_filters: X4 (``ops/device_filters.py``, ``csrc/device_filters.cu``
    for x86 and BCJ2): the eight functions on the card against their plain
    versions on CPU copies and the host's ``ops/filters.py`` on the batches
@@ -1623,91 +1628,200 @@ def dryrun_phase(device) -> dict:
 
 # -- phases 17-19: X3, X4 and the one-call raw-LZMA API ----------------------
 
-CRC_SIZES = (0, 1, 63, 64, 65, 4097, MIB)
 CRC_INITS = {32: 0xABCDEF, 64: 0x123456789A}
 M64 = (1 << 64) - 1
 
 
+def crc_sizes(C) -> tuple:
+    """Phase 17's sizes: small ones, the tile and piece boundaries +- 1 of
+    ``ops/checksum.py`` and 129 MiB, which is not a power of two."""
+    return (0, 1, 63, 64, 65, 4097, C.TILE - 1, C.TILE, C.TILE + 1, MIB,
+            C.PIECE - 1, C.PIECE, C.PIECE + 1, 129 * MIB)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """The shortest of ``reps`` calls of ``fn()`` on the host clock, each
+    ending in a synchronise, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t) * 1e3)
+    return best
+
+
+def crc_parts(data: bytes, device, C) -> dict:
+    """The parts of a call on 128 MiB, each alone: the host's copy into the
+    two pinned staging buffers piece by piece (host clock), the pieces'
+    copies to the card (CUDA events), one copy of the whole from a pinned
+    buffer (CUDA events: ``link_bound_ms``), and the other design, the
+    caller's buffer registered in place (``cudaHostRegister``), copied in
+    one piece and unregistered (host clock).  Best of 3 each."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.tools import best_ms
+    n = len(data)
+    src = C._host_bytes(data)
+    host = [torch.empty(C.PIECE, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    dev = torch.empty(n, dtype=torch.uint8, device=device)
+
+    def host_copy():
+        for k, off in enumerate(range(0, n, C.PIECE)):
+            m = min(C.PIECE, n - off)
+            host[k & 1][:m].copy_(src[off:off + m])
+
+    def piece_copies():
+        for k, off in enumerate(range(0, n, C.PIECE)):
+            m = min(C.PIECE, n - off)
+            dev[off:off + m].copy_(host[k & 1][:m], non_blocking=True)
+
+    whole = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    whole.copy_(src)
+    res = {"host_copy_ms": host_ms(host_copy),
+           "piece_copies_ms": best_ms(piece_copies),
+           "link_bound_ms": best_ms(
+               lambda: dev.copy_(whole, non_blocking=True))}
+    res["link_gb_per_s"] = n / res["link_bound_ms"] / 1e6
+    del whole
+    cudart = torch.cuda.cudart()
+    ptr = np.frombuffer(data, np.uint8).ctypes.data
+
+    def registered():
+        rc = int(cudart.cudaHostRegister(ptr, n, 0))
+        if rc != 0:
+            raise RuntimeError(f"cudaHostRegister: CUDA error {rc}")
+        dev.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        cudart.cudaHostUnregister(ptr)
+
+    try:
+        res["registered_copy_ms"] = host_ms(registered)
+    except RuntimeError as e:       # a measurement of the other design only
+        res["registered_copy_ms"], res["registered_error"] = None, str(e)
+    return res
+
+
 def checksum_device(data: bytes, device) -> tuple[dict, dict]:
-    """Phase 17: X3 (``ops/checksum.py``).  At every size of CRC_SIZES
+    """Phase 17: X3 (``ops/checksum.py``).  At every size of ``crc_sizes``
     (data from a seed) and init values 0 and CRC_INITS, ``crc32_device`` /
-    ``crc64_device`` on the card must equal ``binascii.crc32`` and the
-    port's ``native.crc64``; the block states of the kernel must equal
-    ``block_states_plain`` on CPU copies and the kernel's combine
-    ``combine_plain`` (tolerance 0: integer programs).  Then 128 MiB of the
+    ``crc64_device`` on the card (the pieces through the pinned staging
+    buffers) must equal ``binascii.crc32`` and the port's ``native.crc64``;
+    the tile states of one launch over the whole input must equal
+    ``tile_states_plain`` on a CPU copy, and the fold of them
+    ``fold_plain`` (tolerance 0: integer programs).  Then 128 MiB of the
     corpus: both calls with the launch counts set to 0 just before (equal
-    to the hosts'), the kernels alone by CUDA events (block states and
-    combine, best of 3 after a warm-up), the whole call on the host clock
-    (the pad, the copy to the card and the host fixup included) and the
-    hosts' ``native.crc64`` / ``binascii.crc32`` on the same bytes.
-    Returns the phase line and the X3 entry of the kernels line."""
+    to the hosts'), the tile launch and the fold alone by CUDA events (best
+    of 3 after a warm-up; each kernel's device time by ``torch.profiler``
+    beside them), the whole call on the host clock (best of 3, and
+    the 129 MiB input's), its parts alone (``crc_parts``), the hosts'
+    ``native.crc64`` / ``binascii.crc32`` on the same bytes and the
+    kernels' ptxas report.  Returns the phase line and the X3 entry of the
+    kernels line."""
     import binascii
     import torch
     from lzma_sdk_zliblike_tpu_torch import native
+    from lzma_sdk_zliblike_tpu_torch.ops import _build
     from lzma_sdk_zliblike_tpu_torch.ops import checksum as C
     from lzma_sdk_zliblike_tpu_torch.tools import best_ms
     rng = np.random.default_rng(17)
     host = {32: binascii.crc32, 64: native.crc64}
     dev_fn = {32: C.crc32_device, 64: C.crc64_device}
-    res = {"sizes": list(CRC_SIZES), "mismatches": [], "checks": 0}
+    sizes = crc_sizes(C)
+    res = {"sizes": list(sizes), "tile": C.TILE, "piece": C.PIECE,
+           "mismatches": [], "checks": 0}
     err = plain_ms = 0
-    for n in CRC_SIZES:
+    big = b""
+    for n in sizes:
         d = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
-        buf = torch.from_numpy(C.prep(d)[0])
+        buf = torch.frombuffer(bytearray(d), dtype=torch.uint8) if n else None
         for width in (32, 64):
             for value in (0, CRC_INITS[width]):
                 res["checks"] += 1
                 if dev_fn[width](d, value, device=device) != \
                         host[width](d, value):
-                    res["mismatches"].append([n, width, value])
+                    res["mismatches"].append([n, width, value, "call"])
+            if not n:
+                continue
             t = time.perf_counter()
-            plain = C.block_states_plain(buf, width)
-            plain_c = C.combine_plain(plain, width)
+            plain = C.tile_states_plain(buf, n, width)
+            plain_f = [C.fold_plain(plain, n, width, v)
+                       for v in (0, CRC_INITS[width])]
             if n == MIB:
                 plain_ms += (time.perf_counter() - t) * 1e3
-            kern = C.crc_blocks(buf.to(device), width)
-            kern_c = C.crc_combine(kern, width)
+            kern = C.crc_tiles(buf.to(device), width)
+            kern_f = [C.crc_fold(kern, n, width, v)
+                      for v in (0, CRC_INITS[width])]
             kern = kern.cpu()
             bad = kern != plain
-            err = max([err, abs(kern_c - plain_c)] + [
-                abs((a & M64) - (b & M64)) for a, b in
-                zip(kern[bad].tolist(), plain[bad].tolist())])
+            if bool(bad.any()) or kern_f != plain_f:
+                res["mismatches"].append([n, width, "tiles or fold"])
+            err = max([err] + [abs(a - b) for a, b in zip(kern_f, plain_f)]
+                      + [abs((a & M64) - (b & M64)) for a, b in
+                         zip(kern[bad].tolist(), plain[bad].tolist())])
+        if n == 129 * MIB:
+            big = d
     res["plain_ms_1mib"] = plain_ms
     # the main path: 128 MiB, each width once, counts from 0
-    C.launches = C.combine_launches = 0
-    walls = {}
+    C.launches = C.fold_launches = 0
     for width in (64, 32):
         t = time.perf_counter()
         got = dev_fn[width](data, device=device)
-        walls[width] = (time.perf_counter() - t) * 1e3
+        res[f"crc{width}_first_call_ms"] = (time.perf_counter() - t) * 1e3
         t = time.perf_counter()
         want = host[width](data)
         res[f"host_crc{width}_ms"] = (time.perf_counter() - t) * 1e3
         res[f"crc{width}_equal"] = got == want
-    launches, combine_launches = C.launches, C.combine_launches
+    launches, fold_launches = C.launches, C.fold_launches
+    n = len(data)
     buf = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(device)
+    states = torch.empty(-(-n // C.TILE), dtype=torch.int64, device=device)
     for width in (64, 32):
-        res[f"crc{width}_call_ms"] = walls[width]
+        fn = dev_fn[width]
+        res[f"crc{width}_call_ms"] = host_ms(lambda: fn(data, device=device))
+        res[f"crc{width}_call_129mib_ms"] = host_ms(
+            lambda: fn(big, device=device))
+        res[f"crc{width}_tiles_ms"] = best_ms(
+            lambda: C.crc_tiles(buf, width, 0, states))
+        res[f"crc{width}_fold_ms"] = best_ms(
+            lambda: C.fold_launch(states, n, width, 0))
         res[f"crc{width}_kernel_ms"] = best_ms(
-            lambda: C.crc_combine(C.crc_blocks(buf, width), width))
-        res[f"crc{width}_blocks_ms"] = best_ms(
-            lambda: C.crc_blocks(buf, width))
-    res["bound_ms"] = len(data) / HBM_BYTES_PER_S * 1e3
-    res["launches"], res["combine_launches"] = launches, combine_launches
+            lambda: C.fold_launch(C.crc_tiles(buf, width, 0, states), n,
+                                  width, 0))
+        res[f"crc{width}_device_ms"] = launch_ms(
+            lambda: C.fold_launch(C.crc_tiles(buf, width, 0, states), n,
+                                  width, 0))
+    del buf, states
+    res["parts"] = crc_parts(data, device, C)
+    res["bound_ms"] = n / HBM_BYTES_PER_S * 1e3
+    res["ptxas"] = ptxas_kernels(_build.ptxas_logs.get("checksum", ""))
+    for k in res["ptxas"]:
+        print(f"checksum ptxas {k['kernel']}: {k['registers']} registers, "
+              f"{k['smem_bytes']} bytes smem, {k['spill_store_bytes']} bytes "
+              f"spill stores, {k['spill_load_bytes']} bytes spill loads")
+    pieces = -(-n // C.PIECE)
+    res["launches"], res["fold_launches"] = launches, fold_launches
     res["pass"] = (not res["mismatches"] and err == 0 and res["crc64_equal"]
-                   and res["crc32_equal"] and launches == 2
-                   and combine_launches > 0)
+                   and res["crc32_equal"] and launches == 2 * pieces
+                   and fold_launches == 2)
     entry = {"name": "checksum (X3)", "route": "cuda",
              "source": "lzma_sdk_zliblike_tpu_torch/csrc/checksum.cu",
              "replaces": "lzma_sdk_zliblike_tpu/ops/checksum.py:146",
-             "launches": launches, "combine_launches": combine_launches,
+             "launches": launches, "fold_launches": fold_launches,
              "matches_plain": err == 0 and not res["mismatches"],
              "max_abs_err": err, "ms": res["crc64_kernel_ms"],
+             "tiles_ms": res["crc64_tiles_ms"],
+             "fold_ms": res["crc64_fold_ms"],
              "crc32_ms": res["crc32_kernel_ms"],
              "plain_ms": plain_ms, "plain_bytes": MIB,
              "bound_ms": res["bound_ms"], "bound_by": "bytes",
              "library_ms": None, "host_crc64_ms": res["host_crc64_ms"],
-             "call_ms": res["crc64_call_ms"]}
+             "call_ms": res["crc64_call_ms"],
+             "call_129mib_ms": res["crc64_call_129mib_ms"],
+             "link_bound_ms": res["parts"]["link_bound_ms"]}
     return res, entry
 
 

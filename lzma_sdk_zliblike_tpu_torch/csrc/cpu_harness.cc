@@ -1,7 +1,7 @@
 // Test-only CPU build of the per-lane code that group_decode.cu (K1) and
 // range_encode.cu (K2) run on the GPU, of the per-element bit call of
-// the probes v12_probe.cu (P1) and compact_probe.cu (P2), of the block step
-// and tree join of checksum.cu (X3) and of the pieces of
+// the probes v12_probe.cu (P1) and compact_probe.cu (P2), of the tile and
+// fold schedule of checksum.cu (X3) and of the pieces of
 // device_filters.cu (X4): the same lzma_lane.cuh, lzma_enc_lane.cuh,
 // probe_lane.cuh, checksum_lane.cuh and filters_lane.cuh, compiled by g++,
 // looping over lanes or elements on the host (and, for K1, K2 and X4, over
@@ -612,30 +612,185 @@ extern "C" int lzt_mma_16816_cpu(const void* A_, const void* B_, void* D_) {
   return 0;
 }
 
-// X3's block states (checksum.cu's first launch): `lanes` blocks of 16
-// uint32 words, width 32 or 64, one uint64 state per block.
-extern "C" int lzt_crc_blocks_cpu(const void* words, long long lanes, int width,
-                                  void* states) {
-  using namespace lzt::crc;
-  if (width != 32 && width != 64) return 1;
-  for (long long lane = 0; lane < lanes; ++lane)
-    ((uint64_t*)states)[lane] = block_state((const uint32_t*)words + lane * kBlockWords,
-                                            width == 32 ? kPoly32 : kPoly64);
+// X3 (checksum.cu) on the host.  The kernels' schedule at a given tile,
+// thread count and piece size: a tile's segments, the warp tree in shuffle
+// order (a lane past the warp reads its own value, as __shfl_down_sync
+// gives it), the warps' join in warp 0, the short last tile staged
+// right-aligned; the wrapper's per-piece launches, each piece copied into a
+// buffer of its own length followed by poison bytes, so a read past it
+// would show; and the fold.
+namespace {
+
+using namespace lzt::crc;
+
+template <int W>
+void crc_init_host(state_t<W>* consts) {
+  for (int i = 0; i < kTableWords; ++i) consts[i] = table_entry<W>(i >> 8, i & 255);
+  alignas(16) state_t<W> cur[W];
+  state_t<W> next[W];
+  for (int t = 0; t < W; ++t) cur[t] = zero_byte_column<W>(t);
+  for (int k = 0; k < kPowers; ++k) {
+    for (int t = 0; t < W; ++t) {
+      consts[kTableWords + k * W + t] = cur[t];
+      next[t] = apply<W>(cur, cur[t]);
+    }
+    std::copy(next, next + W, cur);
+  }
+}
+
+bool pow2(long long v) { return v > 0 && (v & (v - 1)) == 0; }
+
+// The warp tree of crc_tiles_kernel over `lanes` values: level k reads the
+// value 2^(k - k0) lanes on (its own past the warp) and joins where
+// tree_joins says, with Z^(seg * 2^k).
+template <int W>
+void warp_tree(std::vector<state_t<W>>& v, int lanes, int k0, int k1, const state_t<W>* M) {
+  for (int k = k0; k < k1; ++k) {
+    const int d = 1 << (k - k0);
+    std::vector<state_t<W>> right(lanes);
+    for (int l = 0; l < lanes; ++l) right[l] = l + d < lanes ? v[l + d] : v[l];
+    for (int l = 0; l < lanes; ++l)
+      if (tree_joins(l, k - k0)) v[l] = join<W>(M + k * W, v[l], right[l]);
+  }
+}
+
+template <int W>
+int crc_tiles_host(const uint8_t* buf, long long n, int tile, int threads,
+                   const state_t<W>* consts, uint64_t* states) {
+  if (n <= 0 || !pow2(tile) || !pow2(threads) || threads > 1024 || tile % threads ||
+      (tile / threads) % kSlices)
+    return 1;
+  const int seg = tile / threads, ws = threads < 32 ? threads : 32, warps = threads / ws;
+  const int levels = log2_floor(threads), wlevels = log2_floor(ws);
+  const state_t<W>* T = consts;
+  const state_t<W>* M = consts + kTableWords + log2_floor(seg) * W;
+  const long long tiles = (n + tile - 1) / tile;
+  const int last = (int)(n - (tiles - 1) * tile);
+  std::vector<uint32_t> stage_words(threads * (seg + kRowPad) / 4);
+  uint8_t* cur = (uint8_t*)stage_words.data();
+  for (long long i = 0; i < tiles; ++i) {
+    const uint8_t* s = buf + i * tile;
+    if (i == tiles - 1 && last < tile) {
+      for (int p = 0; p < tile; ++p) cur[stage_offset(p, seg)] = short_tile_byte(s, tile, last, p);
+    } else {
+      for (int c = 0; c < tile / 16; ++c) std::memcpy(cur + stage_offset(c * 16, seg), s + c * 16, 16);
+    }
+    std::vector<state_t<W>> warp_s(ws, 0);
+    for (int w = 0; w < warps; ++w) {
+      std::vector<state_t<W>> v(ws);
+      for (int l = 0; l < ws; ++l)
+        v[l] = segment_state<W>(T, (const uint32_t*)(cur + (w * ws + l) * (seg + kRowPad)),
+                                seg / kSlices);
+      warp_tree<W>(v, ws, 0, wlevels, M);
+      warp_s[w] = v[0];
+    }
+    // warp 0: lanes below `warps` hold the warps' states, the rest zero
+    warp_tree<W>(warp_s, ws, wlevels, levels, M);
+    states[i] = (uint64_t)warp_s[0];
+  }
   return 0;
 }
 
-// X3's tree combine (checksum.cu's combine launches, every level): n states
-// (a power of two) joined level by level with mats (levels x width
-// columns); the result in *out.
-extern "C" int lzt_crc_combine_cpu(const void* states, long long n, const void* mats,
-                                   int width, void* out) {
-  std::vector<uint64_t> s((const uint64_t*)states, (const uint64_t*)states + n);
-  for (int lv = 0; n > 1; ++lv, n /= 2)
-    for (long long i = 0; i < n / 2; ++i)
-      s[i] = lzt::crc::join((const uint64_t*)mats + lv * width, s[2 * i], s[2 * i + 1],
-                            width);
-  *(uint64_t*)out = s[0];
+template <int W>
+uint64_t crc_fold_host(const uint64_t* states, long long n, int tile, int fold_threads,
+                       state_t<W> init, const state_t<W>* consts) {
+  const state_t<W>* powers = consts + kTableWords;
+  const int tile_log = log2_floor(tile);
+  const long long f = (n - 1) / tile;
+  long long p = 1;
+  while (p <= f) p <<= 1;
+  const int nt = p < fold_threads ? (int)p : fold_threads;
+  const long long per = p / nt;
+  std::vector<state_t<W>> s(nt);
+  for (int t = 0; t < nt; ++t)
+    s[t] = fold_run<W>(states, t * per, per, p, f, init, powers + tile_log * W);
+  const int lv = tile_log + log2_floor(per);
+  for (int k = 0; (1 << k) < nt; ++k)
+    for (int t = nt - 1; t >= 0; --t)      // last to first: no thread reads a joined slot
+      if (tree_joins(t, k)) s[t] = join<W>(powers + (lv + k) * W, s[t], s[t + (1 << k)]);
+  return (uint64_t)fold_finish<W>(powers, s[0], (uint64_t)(n - f * tile), (state_t<W>)states[f]);
+}
+
+template <int W>
+int crc_call_host(const uint8_t* data, long long n, unsigned long long value, int tile,
+                  int threads, long long piece, int fold_threads, const state_t<W>* consts,
+                  uint64_t* out) {
+  const unsigned long long ones = W == 64 ? ~0ull : 0xFFFFFFFFull;
+  if (n == 0) {
+    *out = value & ones;
+    return 0;
+  }
+  if (!pow2(fold_threads) || fold_threads > 1024 || piece <= 0 || piece % tile) return 1;
+  std::vector<uint64_t> states((n + tile - 1) / tile);
+  for (long long off = 0; off < n; off += piece) {
+    const long long m = n - off < piece ? n - off : piece;
+    std::vector<uint32_t> words((m + 64 + 3) / 4);
+    uint8_t* b = (uint8_t*)words.data();
+    std::memset(b + m, 0xA5, words.size() * 4 - m);
+    std::memcpy(b, data + off, m);
+    const int rc = crc_tiles_host<W>(b, m, tile, threads, consts, states.data() + off / tile);
+    if (rc) return rc;
+  }
+  *out = crc_fold_host<W>(states.data(), n, tile, fold_threads,
+                          (state_t<W>)((value ^ ones) & ones), consts);
   return 0;
+}
+
+}  // namespace
+
+// crc_init_kernel: `consts` gets const_words<width>() words of width / 8
+// bytes (the tables, then the powers Z^(2^k)).
+extern "C" int lzt_crc_init_cpu(int width, void* consts) {
+  if (width == 64) crc_init_host<64>((uint64_t*)consts);
+  else if (width == 32) crc_init_host<32>((uint32_t*)consts);
+  else return 1;
+  return 0;
+}
+
+// crc_tiles_kernel over the n bytes of buf at `tile` bytes and `threads`
+// threads a tile: one uint64 state per tile into states.
+extern "C" int lzt_crc_tiles_cpu(const void* buf, long long n, int width, int tile, int threads,
+                                 const void* consts, void* states) {
+  if (width == 64)
+    return crc_tiles_host<64>((const uint8_t*)buf, n, tile, threads, (const uint64_t*)consts,
+                              (uint64_t*)states);
+  if (width == 32)
+    return crc_tiles_host<32>((const uint8_t*)buf, n, tile, threads, (const uint32_t*)consts,
+                              (uint64_t*)states);
+  return 1;
+}
+
+// crc_fold_kernel with `fold_threads` threads: the CRC of n bytes from the
+// ceil(n / tile) tile states and the init state (value ^ all-ones) in *out.
+extern "C" int lzt_crc_fold_cpu(const void* states, long long n, int width, int tile,
+                                int fold_threads, unsigned long long init, const void* consts,
+                                void* out) {
+  if (n <= 0 || !pow2(tile) || !pow2(fold_threads) || fold_threads > 1024) return 1;
+  if (width == 64)
+    *(uint64_t*)out = crc_fold_host<64>((const uint64_t*)states, n, tile, fold_threads,
+                                        (uint64_t)init, (const uint64_t*)consts);
+  else if (width == 32)
+    *(uint64_t*)out = crc_fold_host<32>((const uint64_t*)states, n, tile, fold_threads,
+                                        (uint32_t)init, (const uint32_t*)consts);
+  else
+    return 1;
+  return 0;
+}
+
+// A whole call (ops/checksum.py's crc*_device on the card): pieces of
+// `piece` bytes (a multiple of tile), a tile launch each, then the fold;
+// the CRC of data from `value` in *out.
+extern "C" int lzt_crc_call_cpu(const void* data, long long n, int width,
+                                unsigned long long value, int tile, int threads,
+                                long long piece, int fold_threads, const void* consts,
+                                void* out) {
+  if (width == 64)
+    return crc_call_host<64>((const uint8_t*)data, n, value, tile, threads, piece, fold_threads,
+                             (const uint64_t*)consts, (uint64_t*)out);
+  if (width == 32)
+    return crc_call_host<32>((const uint8_t*)data, n, value, tile, threads, piece, fold_threads,
+                             (const uint32_t*)consts, (uint64_t*)out);
+  return 1;
 }
 
 // X4's x86 BCJ (device_filters.cu) over n_lanes rows of `row` bytes of

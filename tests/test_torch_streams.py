@@ -15,7 +15,9 @@ same error class; the port's ``engine="py"`` must equal its native engine.
 from __future__ import annotations
 
 import importlib.util
+import math
 import os
+import time
 
 import pytest
 
@@ -74,14 +76,28 @@ def _archive(tmp_path, kw, name="a.7z"):
 
 
 def _tree(root):
-    """{relative path: (bytes, whole seconds of mtime)} under ``root``."""
+    """{relative path: (bytes, whole seconds of mtime)} under ``root``; the
+    mtime only for a file with a stored time (``MTIMES``), None for the
+    rest, which keep the second their extraction wrote them in."""
     out = {}
     for d, _dirs, names in os.walk(root):
         for n in names:
             p = os.path.join(d, n)
-            out[os.path.relpath(p, root)] = (open(p, "rb").read(),
-                                             int(os.stat(p).st_mtime))
+            rel = os.path.relpath(p, root).replace(os.sep, "/")
+            out[rel] = (open(p, "rb").read(),
+                        int(os.stat(p).st_mtime) if rel in MTIMES else None)
     return out
+
+
+def _written_between(root, before: float, after: float) -> bool:
+    """Every file under ``root`` without a stored time has an mtime between
+    ``before`` (floored) and ``after`` (ceiled), clock reads around the
+    extractions."""
+    lo, hi = math.floor(before), math.ceil(after)
+    return all(lo <= os.stat(os.path.join(d, n)).st_mtime <= hi
+               for d, _dirs, names in os.walk(root) for n in names
+               if os.path.relpath(os.path.join(d, n), root).replace(
+                   os.sep, "/") not in MTIMES)
 
 
 def _run(fn, *a, **kw):
@@ -98,12 +114,17 @@ def _run(fn, *a, **kw):
 @pytest.mark.parametrize("desc,kw", SHAPES, ids=IDS)
 def test_extract_streaming_matches_jax(tmp_path, desc, kw):
     path = _archive(tmp_path, kw)
+    before = time.time()
     names = TE.extract_streaming(path, str(tmp_path / "t"))
     assert names == JE.extract_streaming(path, str(tmp_path / "j"))
+    after = time.time()
     got = _tree(tmp_path / "t")
     assert got == _tree(tmp_path / "j")
     assert {k: v[0] for k, v in got.items()} == FILES
     assert got["docs/readme.txt"][1] == 1_600_000_000
+    assert got["empty.txt"][1] == 1_600_000_000
+    for side in "tj":
+        assert _written_between(tmp_path / side, before, after)
 
 
 def test_ppmd_folders_are_refused_by_both(tmp_path):
@@ -138,14 +159,18 @@ def test_abort_at_the_same_call(tmp_path, stop_at):
             return seen[key] < stop_at
         return cb
 
+    before = time.time()
     with pytest.raises(ProgressAborted):
         TE.extract_streaming(path, str(tmp_path / "t"),
                              progress=progress("t"))
     _res, err = _run(JE.extract_streaming, path, str(tmp_path / "j"),
                      progress=progress("j"))
+    after = time.time()
     assert err == "ProgressAborted"
     assert seen["t"] == seen["j"] == stop_at
     assert _tree(tmp_path / "t") == _tree(tmp_path / "j")
+    for side in "tj":
+        assert _written_between(tmp_path / side, before, after)
 
 
 @pytest.mark.parametrize("desc,kw", [SHAPES[0], SHAPES[2], SHAPES[4],
