@@ -91,7 +91,13 @@ Phases, each printed as one JSON line:
    of a one-block image of 1 MiB from Python's ``lzma`` (one group over
    256 KiB): equal to the data, K1 launched, no group on the host.  Two
    steps of the first read are also timed alone: its LZMA2 payload through
-   ``lzma2_uncompress`` and the CRC64 of the output.
+   ``lzma2_uncompress`` and the CRC64 of the output.  Then the same with a
+   SHA-256 check (``sha256``): the port's writer of the data and a 1 MiB
+   image of Python's ``lzma`` with ``CHECK_SHA256``, each read through K1
+   the same way; the owned ``native.sha256`` / ``native.crc32`` against
+   ``hashlib.sha256`` / ``binascii.crc32`` on the data on the host (best
+   of 3; ``utils/checksums.sha256`` is ``hashlib``'s), and a
+   ``native.Sha256`` digest taken mid-stream and then updated further.
 10. hybrid encode: ``encode_lzma2_hybrid(device="cuda")`` of phase 3's data
    at ``encode_main``'s shape (1 MiB dictionary and chunk), at every core
    (``hybrid_encode``) and at one host thread (``hybrid_encode_1t``, where
@@ -1126,10 +1132,61 @@ def xz_phase(data: bytes, device) -> tuple[dict, bytes]:
     srun = xz_run(simg, small, device)
     res = {"packed": len(img), "blocks": blocks, "encode_seconds": enc_s,
            "encode_mb_per_s": len(data) / enc_s / 1e6,
-           "python_lzma_equal": lzma_equal, **run, "liblzma_block": srun}
+           "python_lzma_equal": lzma_equal, **run, "liblzma_block": srun,
+           "sha256": xz_sha256(data, small, device)}
     res["pass"] = (lzma_equal and blocks == 1 and run["pass"]
-                   and srun["pass"])
+                   and srun["pass"] and res["sha256"]["pass"])
     return res, img
+
+
+def xz_sha256(data: bytes, small: bytes, device) -> dict:
+    """The xz phase with a SHA-256 block check: the port's writer of the
+    main data and Python's ``lzma`` of ``small``, each read through K1
+    (``xz_run``); the owned SHA-256 and CRC32 against ``hashlib`` and
+    ``binascii`` on the host, and ``native.Sha256`` past a mid-stream
+    digest."""
+    import binascii
+    from lzma_sdk_zliblike_tpu_torch import native
+    from lzma_sdk_zliblike_tpu_torch.containers import xz
+    t = time.perf_counter()
+    img = xz.encode(data, check="sha256", dict_size=MIB, chunk_size=MIB,
+                    threads=os.cpu_count())
+    enc_s = time.perf_counter() - t
+    lzma_equal = lzma.decompress(img) == data
+    run = xz_run(img, data, device)
+    srun = xz_run(lzma.compress(small, format=lzma.FORMAT_XZ,
+                                check=lzma.CHECK_SHA256), small, device)
+    host_ms, equal = {}, {}
+    for name, fn in (("native_sha256", native.sha256),
+                     ("hashlib_sha256", lambda b: hashlib.sha256(b).digest()),
+                     ("native_crc32", native.crc32),
+                     ("binascii_crc32", binascii.crc32)):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            equal[name] = fn(data)
+            times.append((time.perf_counter() - t) * 1e3)
+        host_ms[name] = min(times)
+    h = native.Sha256()
+    h.update(data[:MIB + 7])
+    mid_ok = h.digest() == hashlib.sha256(data[:MIB + 7]).digest()
+    h.update(data[MIB + 7:])
+    stream_ok = mid_ok and h.digest() == equal["hashlib_sha256"]
+    res = {"packed": len(img), "encode_seconds": enc_s,
+           "encode_mb_per_s": len(data) / enc_s / 1e6,
+           "python_lzma_equal": lzma_equal, **run, "liblzma_block": srun,
+           "host_ms": host_ms,
+           "native_sha256_over_hashlib": (host_ms["native_sha256"]
+                                          / host_ms["hashlib_sha256"]),
+           "native_crc32_over_binascii": (host_ms["native_crc32"]
+                                          / host_ms["binascii_crc32"]),
+           "sha256_equal": equal["native_sha256"] == equal["hashlib_sha256"],
+           "crc32_equal": equal["native_crc32"] == equal["binascii_crc32"],
+           "streaming_equal": stream_ok}
+    res["pass"] = (lzma_equal and run["pass"] and srun["pass"]
+                   and res["sha256_equal"] and res["crc32_equal"]
+                   and stream_ok)
+    return res
 
 
 def xz_steps(img: bytes, data: bytes, device) -> dict:
@@ -2616,6 +2673,9 @@ def main() -> int:
         "hybrid_abort_launches": ph[3]["launches"],
         "xz_launches": p9["launches"],
         "xz_liblzma_block_launches": p9["liblzma_block"]["launches"],
+        "xz_sha256_launches": p9["sha256"]["launches"],
+        "xz_sha256_liblzma_launches": p9["sha256"]["liblzma_block"][
+            "launches"],
         "distributed_launches": p14.get("launches", 0),
         "dryrun_launches": p16["launches"]}, {
         "name": "range_encode (K2)", "route": "cuda",

@@ -656,7 +656,9 @@ class XzStreamDecoder:
 
 class _DigestState:
     """The rolling block check of one block (none, CRC32, CRC64 or
-    SHA-256)."""
+    SHA-256).  SHA-256 runs on ``hashlib``, as the JAX package's does: the
+    owned ``native.Sha256`` gives the same digest more slowly (see
+    ``utils/checksums.sha256``)."""
 
     def __init__(self, check_id: int):
         self.check_id = check_id

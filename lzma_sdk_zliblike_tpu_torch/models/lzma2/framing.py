@@ -163,9 +163,15 @@ def decode(stream: bytes, dict_prop: int, *, engine: str = "auto") -> bytes:
 
 
 def decode_chunks(stream: bytes, chunks: list[Chunk], *,
-                  dict_size: int = 0xFFFFFFFF) -> bytes:
-    """Decode a chunk list on the host with the scalar reference decoder."""
+                  dict_size: int = 0xFFFFFFFF, engine: str = "auto") -> bytes:
+    """Decode a chunk list on the host with the scalar reference decoder.
+
+    ``engine`` is checked as the host-only paths check it (a device
+    engine's name raises UnsupportedError) and selects nothing: every host
+    engine runs the reference here, as in the JAX package."""
+    from ...engine import check_engine
     from ..lzma.decoder_ref import LzmaDecoder
+    check_engine(engine, "LZMA2 chunk decode")
     out = bytearray()
     dec: LzmaDecoder | None = None
     dic_start = 0

@@ -10,12 +10,14 @@ the device match finder X2), ``lzt_lzma_encode`` and ``lzt_lzma_decode``
 LZMA2 encoder, ``Lzma2StreamEncoder``), ``lzt_stream_dec_*`` and
 ``lzt_stream2_dec_*`` (the resumable raw-LZMA and LZMA2 decoders,
 ``LzmaStreamDecoder`` / ``Lzma2StreamDecoder``), ``lzt_ppmd7_decode`` /
-``lzt_ppmd7_encode`` (PPMd var.H, 7z method 0x030401) and ``lzt_crc64``
-(the xz container's CRC64).
-The sources are ``csrc/host/lzt_codec.cc`` and ``csrc/host/lzt_ppmd7.cc``,
-copies of the JAX package's ``native/`` files.  At first use they are built
-with g++ into one ``build/torch_host/liblzt_host_<hash>.so`` (the hash
-covers both sources and the flags, so an edited source is rebuilt), written
+``lzt_ppmd7_encode`` (PPMd var.H, 7z method 0x030401), ``lzt_crc64`` (the
+xz container's CRC64), ``lzt_crc32`` and ``lzt_sha256*`` (the reference's
+CRC32 and SHA-256, ``Sha256.c``'s Init/Update/Final).
+The sources are ``csrc/host/lzt_codec.cc``, ``csrc/host/lzt_ppmd7.cc`` and
+``csrc/host/lzt_sha256.cc``, copies of the JAX package's ``native/`` files.
+At first use they are built with g++ into one
+``build/torch_host/liblzt_host_<hash>.so`` (the hash covers every source
+and the flags, so an edited source is rebuilt), written
 under a temporary name and renamed, so that concurrent test workers never
 load a half-written library.  There is no fallback: a missing g++ or a
 failed build raises.
@@ -38,7 +40,8 @@ from .utils.errors import DataError, ParamError, raise_for_sres
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "host", "lzt_codec.cc")
 PPMD_SOURCE = os.path.join(_PKG, "csrc", "host", "lzt_ppmd7.cc")
-SOURCES = (SOURCE, PPMD_SOURCE)
+SHA256_SOURCE = os.path.join(_PKG, "csrc", "host", "lzt_sha256.cc")
+SOURCES = (SOURCE, PPMD_SOURCE, SHA256_SOURCE)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
@@ -157,6 +160,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         u8p, ctypes.POINTER(ctypes.c_size_t)]             # out, inout len
     lib.lzt_crc64.restype = ctypes.c_uint64
     lib.lzt_crc64.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint64]
+    lib.lzt_crc32.restype = ctypes.c_uint32
+    lib.lzt_crc32.argtypes = [u8p, ctypes.c_size_t, ctypes.c_uint32]
+    lib.lzt_sha256.restype = None
+    lib.lzt_sha256.argtypes = [u8p, ctypes.c_size_t, u8p]      # data, n, out
+    lib.lzt_sha256_init.restype = None
+    lib.lzt_sha256_init.argtypes = [u8p]                       # context blob
+    lib.lzt_sha256_update.restype = None
+    lib.lzt_sha256_update.argtypes = [u8p, u8p, ctypes.c_size_t]
+    lib.lzt_sha256_final.restype = None
+    lib.lzt_sha256_final.argtypes = [u8p, u8p]
     lib.lzt_lzma2_group_ops.restype = ctypes.c_int
     lib.lzt_lzma2_group_ops.argtypes = [
         u8p, ctypes.c_size_t, ctypes.c_uint32,
@@ -345,6 +358,48 @@ def crc64(data, value: int = 0) -> int:
     """Rolling CRC64 (ECMA-182, xz's check) of ``data`` from ``value``."""
     data = bytes(data)
     return _load().lzt_crc64(_as_u8p(data), len(data), value)
+
+
+def crc32(data, value: int = 0) -> int:
+    """Rolling CRC32 (the reference's ``CrcUpdate``, zlib's) of ``data``
+    from ``value``."""
+    data = bytes(data)
+    return _load().lzt_crc32(_as_u8p(data), len(data), value)
+
+
+_SHA256_CTX = 112   # the context blob of csrc/host/lzt_sha256.cc
+
+
+def sha256(data) -> bytes:
+    """One-shot SHA-256 of ``data`` with the owned implementation
+    (``csrc/host/lzt_sha256.cc``).  ``utils/checksums.sha256`` stays on
+    ``hashlib``, which gives the same digest faster."""
+    data = bytes(data)
+    out = (ctypes.c_uint8 * 32)()
+    _load().lzt_sha256(_as_u8p(data), len(data), out)
+    return bytes(out)
+
+
+class Sha256:
+    """Streaming SHA-256 (the reference's Init/Update/Final) with the owned
+    implementation; ``digest()`` finalises a copy of the context, so
+    ``update()`` may go on after it."""
+
+    def __init__(self):
+        self._lib = _load()
+        self._blob = (ctypes.c_uint8 * _SHA256_CTX)()
+        self._lib.lzt_sha256_init(self._blob)
+
+    def update(self, data) -> None:
+        data = bytes(data)
+        self._lib.lzt_sha256_update(self._blob, _as_u8p(data), len(data))
+
+    def digest(self) -> bytes:
+        blob = (ctypes.c_uint8 * _SHA256_CTX)()
+        ctypes.memmove(blob, self._blob, _SHA256_CTX)
+        out = (ctypes.c_uint8 * 32)()
+        self._lib.lzt_sha256_final(blob, out)
+        return bytes(out)
 
 
 def group_ops_cap(n: int) -> int:

@@ -41,8 +41,8 @@ import warnings
 import numpy as np
 import torch
 
-CRC32_POLY = 0xEDB88320
-CRC64_POLY = 0xC96C5795D7870F42
+from ..utils.checksums import CRC32_POLY, CRC64_POLY
+
 BLOCK = 64            # bytes per block state of the plain version
 TILE = 1 << 16        # bytes per tile (csrc/checksum.cu kTile)
 PIECE = 16 << 20      # bytes per staged piece of a call on the card

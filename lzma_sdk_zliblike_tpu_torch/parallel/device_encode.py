@@ -93,6 +93,7 @@ from ..api import check_device
 from ..models.lzma2.framing import encode_dict_prop
 from ..ops import match_find as X2
 from ..ops import range_encode as R
+from ..utils.errors import ParamError
 from ..utils.memory import INFLIGHT, encode_lanes
 from ..utils.trace import TRACE
 from .host_pool import normalize_threads
@@ -220,6 +221,7 @@ def finish_batch(handle, nch, groups, parsed, spans, sub: int,
 
 def encode_lzma2_device_coded(data: bytes, *, dict_size: int = 1 << 20,
                               chunk_size: int = 1 << 20,
+                              lanes: int | None = None,
                               threads: int | None = None, lc: int = 3,
                               lp: int = 0, pb: int = 2, progress=None,
                               device="cuda") -> tuple[bytes, int]:
@@ -229,10 +231,13 @@ def encode_lzma2_device_coded(data: bytes, *, dict_size: int = 1 << 20,
     ``host_pool.encode_lzma2_mt`` at the same parameters.  ``device="cuda"``
     (the default) codes with kernel K2 and raises when there is no card;
     ``device="cpu"`` runs the kernel's plain PyTorch version.  Batches are
-    sized by the device budget (``utils/memory.encode_lanes``), at most
-    ``INFLIGHT`` on the card; ``progress(in_bytes, out_bytes)`` is called
-    after each batch."""
+    sized by the device budget (``utils/memory.encode_lanes``) and hold at
+    most ``lanes`` groups (None: no cap), at most ``INFLIGHT`` on the card;
+    ``progress(in_bytes, out_bytes)`` is called after each batch.  The
+    stream does not depend on ``lanes``."""
     device = check_device(device)
+    if lanes is not None and lanes < 1:
+        raise ParamError(f"lanes must be at least 1, got {lanes}")
     prop = encode_dict_prop(dict_size)
     n = len(data)
     if n == 0:
@@ -265,13 +270,14 @@ def encode_lzma2_device_coded(data: bytes, *, dict_size: int = 1 << 20,
         TRACE.add("device_encode.host_groups", len(host))
         dev = [gi for gi, c in enumerate(card) if c]
         if dev:
-            lanes = encode_lanes(
-                len(dev), max(len(parsed[gi][0]) for gi in dev),
+            width = encode_lanes(
+                min(len(dev), lanes or len(dev)),
+                max(len(parsed[gi][0]) for gi in dev),
                 R.out_cap_for(max(spans[gi][1] - spans[gi][0] for gi in dev)),
                 max(len(parsed[gi][1]) for gi in dev), device=device)
             pending: collections.deque = collections.deque()
-            for base in range(0, len(dev), lanes):
-                batch = dev[base:base + lanes]
+            for base in range(0, len(dev), width):
+                batch = dev[base:base + width]
                 if len(pending) == INFLIGHT:
                     finish(*pending.popleft())
                 handle, nch = submit_batch([parsed[gi] for gi in batch],

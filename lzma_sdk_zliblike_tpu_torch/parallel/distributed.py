@@ -355,12 +355,12 @@ def encode_groups_distributed(data: bytes, *, dict_size: int,
     return b"".join(out) + b"\x00", prop
 
 
-def run_local_cluster(n: int, script: str, *, timeout: float = 600,
-                      env: dict | None = None
+def run_local_cluster(n_processes: int, script: str, *,
+                      timeout: float = 600, env: dict | None = None
                       ) -> list[subprocess.CompletedProcess]:
-    """Run ``script`` (Python source) in ``n`` fresh interpreters that form
-    one cluster on this machine, and return each rank's CompletedProcess
-    (stdout holds its output and errors), in rank order.
+    """Run ``script`` (Python source) in ``n_processes`` fresh interpreters
+    that form one cluster on this machine, and return each rank's
+    CompletedProcess (stdout holds its output and errors), in rank order.
 
     The launcher serves the group's store on a port the OS picks and holds
     it until the ranks exit; each rank finds its rank, the world size and
@@ -371,14 +371,14 @@ def run_local_cluster(n: int, script: str, *, timeout: float = 600,
     store = dist.TCPStore("127.0.0.1", 0, is_master=True,
                           wait_for_workers=False)
     base = {**os.environ, **(env or {}),
-            ENV_NUM_PROCESSES: str(n), ENV_STORE_HELD: "1",
+            ENV_NUM_PROCESSES: str(n_processes), ENV_STORE_HELD: "1",
             ENV_COORDINATOR: f"127.0.0.1:{store.port}",
-            "LOCAL_WORLD_SIZE": str(n)}
+            "LOCAL_WORLD_SIZE": str(n_processes)}
     base.setdefault("GLOO_SOCKET_IFNAME", "lo")
     procs: list[subprocess.Popen] = []
     logs = []
     try:
-        for rank in range(n):
+        for rank in range(n_processes):
             logs.append(tempfile.TemporaryFile())
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", script], cwd=_REPO,

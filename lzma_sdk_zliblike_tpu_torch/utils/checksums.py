@@ -6,7 +6,8 @@ identical to zlib, so ``binascii.crc32`` is bit-exact), the xz CRC64 poly
 0xC96C5795D7870F42 (``XzCrc64.c:6-33``), and SHA-256 (``Sha256.c``;
 ``hashlib`` is bit-exact).  CRC64 runs in the port's native runtime
 (``native.crc64``, slicing-by-8), which is always built; there is no
-slower fallback.
+slower fallback.  The polynomials are defined here once; the device CRCs
+(``ops/checksum.py``) take them from this module.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import binascii
 import hashlib
 
 from .. import native
+
+CRC32_POLY = 0xEDB88320            # reflected (7zCrc.c:9)
+CRC64_POLY = 0xC96C5795D7870F42    # reflected ECMA-182 (XzCrc64.c:6)
 
 
 def crc32(data: bytes | bytearray | memoryview, value: int = 0) -> int:
@@ -28,12 +32,21 @@ def crc64(data: bytes | bytearray | memoryview, value: int = 0) -> int:
 
 
 def sha256(data: bytes) -> bytes:
-    """SHA-256 digest (reference ``Sha256_*``)."""
+    """SHA-256 digest (reference ``Sha256_*``).
+
+    Computed by ``hashlib``, where the JAX package calls its owned native
+    SHA-256 when the runtime is built.  The digests are the same bytes;
+    ``hashlib`` is the faster of the two on a host, so the port keeps it
+    and binds the owned implementation as ``native.sha256`` /
+    ``native.Sha256`` only."""
     return hashlib.sha256(data).digest()
 
 
 class Sha256Stream:
-    """Incremental SHA-256 matching the reference's Init/Update/Final."""
+    """Incremental SHA-256 matching the reference's Init/Update/Final.
+
+    On ``hashlib``, as the JAX package's is; ``native.Sha256`` is the
+    owned implementation and the slower of the two (see ``sha256``)."""
 
     def __init__(self):
         self._h = hashlib.sha256()

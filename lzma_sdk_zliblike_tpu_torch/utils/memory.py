@@ -44,18 +44,29 @@ def device_budget(device) -> int:
     return CPU_BUDGET
 
 
-def decode_batch_hbm_bytes(n_lanes: int, pack_cap: int, dic_cap: int) -> int:
-    """Device bytes ``INFLIGHT`` batches of ``n_lanes`` one-group lanes hold.
+def decode_batch_hbm_bytes(n_lanes: int, pack_cap: int, dic_cap: int,
+                           inflight: int = INFLIGHT) -> int:
+    """Device bytes ``inflight`` batches of ``n_lanes`` one-group lanes hold.
 
     The output (the dictionary) is ``dic_cap`` bytes per lane; the packed
     source adds ``pack_cap`` per lane.  Status and chunk tables are small
     and ignored."""
-    return n_lanes * (dic_cap + pack_cap) * INFLIGHT
+    return n_lanes * (dic_cap + pack_cap) * inflight
 
 
-def pick_lanes(pack_cap: int, dic_cap: int, *, hbm_budget: int) -> int:
-    """Most one-group lanes whose batches fit the budget (at least 1)."""
-    return max(1, hbm_budget // decode_batch_hbm_bytes(1, pack_cap, dic_cap))
+def pick_lanes(pack_cap: int, dic_cap: int, *, hbm_budget: int,
+               max_lanes: int | None = None, min_lanes: int = 1,
+               inflight: int = INFLIGHT) -> int:
+    """Most one-group lanes whose ``inflight`` batches fit the budget, at
+    most ``max_lanes`` (None: no cap) and at least ``min_lanes``.
+
+    Any count, where the JAX package's is the largest power of two: K1 runs
+    one lane per block, so a lane more is a group more at once."""
+    lanes = hbm_budget // decode_batch_hbm_bytes(1, pack_cap, dic_cap,
+                                                 inflight)
+    if max_lanes is not None:
+        lanes = min(lanes, max_lanes)
+    return max(min_lanes, lanes)
 
 
 def _round4k(n: int) -> int:
@@ -71,13 +82,16 @@ def fits_launcher(group) -> bool:
             and _round4k(sum(c.unpack_size for c in group)) < CAP_LIMIT)
 
 
-def shape_for_groups(groups, *, device="cuda", hbm_budget: int | None = None):
+def shape_for_groups(groups, *, device="cuda", hbm_budget: int | None = None,
+                     max_lanes: int | None = None):
     """A BatchShape sized to the stream's groups under the device budget.
 
     dic_cap/pack_cap cover the largest group the launcher takes
     (``fits_launcher``; 4 KiB-rounded): a group that must go to the host
     does not size every lane.  The lane count is the number of those groups
-    that hold an LZMA chunk, capped by the budget, with one group per lane."""
+    that hold an LZMA chunk, capped by the budget and by ``max_lanes``
+    (None: no cap), with one group per lane.  The shape carries no
+    (lc, lp, pb): the scheduler gives each its own launch."""
     from ..parallel.scheduler import BatchShape
 
     groups = [g for g in groups if fits_launcher(g)]
@@ -89,7 +103,8 @@ def shape_for_groups(groups, *, device="cuda", hbm_budget: int | None = None):
     if hbm_budget is None:
         hbm_budget = device_budget(device)
     lanes = min(max(1, n_lzma),
-                pick_lanes(pack_cap, dic_cap, hbm_budget=hbm_budget))
+                pick_lanes(pack_cap, dic_cap, hbm_budget=hbm_budget,
+                           max_lanes=max_lanes))
     return BatchShape(n_lanes=lanes, pack_cap=pack_cap, dic_cap=dic_cap,
                       groups_per_lane=1)
 

@@ -132,12 +132,14 @@ def test_library_path_follows_the_ppmd_source(tmp_path, monkeypatch):
     """The library's name hashes both sources, so an edited
     ``lzt_ppmd7.cc`` gives a new library rather than loading one built
     without it."""
-    before = N.lib_path()
+    before, sources = N.lib_path(), N.SOURCES
+    assert N.PPMD_SOURCE in sources
     copy = tmp_path / "lzt_ppmd7.cc"
     copy.write_bytes(open(N.PPMD_SOURCE, "rb").read() + b"\n// edited\n")
-    monkeypatch.setattr(N, "SOURCES", (N.SOURCE, str(copy)))
+    monkeypatch.setattr(N, "SOURCES", tuple(
+        str(copy) if s == N.PPMD_SOURCE else s for s in sources))
     assert N.lib_path() != before
-    monkeypatch.setattr(N, "SOURCES", (N.SOURCE, N.PPMD_SOURCE))
+    monkeypatch.setattr(N, "SOURCES", sources)
     assert N.lib_path() == before
     assert N.PPMD_SOURCE == os.path.join(
         REPO, "lzma_sdk_zliblike_tpu_torch", "csrc", "host", "lzt_ppmd7.cc")
