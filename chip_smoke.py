@@ -12,7 +12,8 @@ Phases, each printed as one JSON line:
 
 1. build: nvcc builds every kernel of the paths (``csrc/*.cu``: K1
    ``group_decode``, K2 ``range_encode``, P1 ``v12_probe``, P2
-   ``compact_probe``, X3 ``checksum``, X4 ``device_filters``) for sm_90a;
+   ``compact_probe``, X2 ``match_find``, X3 ``checksum``, X4
+   ``device_filters``) for sm_90a;
    the ``-Xptxas -v``
    report (registers, shared memory, spills) is printed.
 2. kernel vs plain: K1 on CUDA tensors against ``group_decode_plain`` on CPU
@@ -111,13 +112,21 @@ Phases, each printed as one JSON line:
    against the host parse's native bodies framed as the host encoder frames
    them, and decoded with Python's ``lzma``; K2's time with its walk, code
    and gather split, its ops and bit calls.
-12. X2 vs CPU: the match finder (``ops/match_find.py``, torch ops) on the
-   card against the same function on the CPU, 4 lanes of 64 KiB (one short)
-   and 1 lane of 2^17, at 24 + 12 and 3 + 2 candidates: every output
-   identical (tolerance 0); then X2 alone at the encoder's batch (32 lanes
-   of 64 KiB), timed by CUDA events, with its bytes bound.
+12. X2 vs plain: the match finder's kernel (``ops/match_find.py``,
+   ``csrc/match_find.cu``) on the card against its plain version (torch
+   ops) on the card and on the CPU, 4 lanes of 64 KiB (one short), 1 lane
+   of 2^17 and 4 edge lanes of 2^16 (a word in bucket -1, the padded
+   slots' bucket; a zero lane; valid 7 and L - 12345), at 24 + 12 and 3 +
+   2 candidates: every output identical (tolerance 0); then the kernel and
+   the plain version at the encoder's batch (32 lanes of 64 KiB), timed by
+   CUDA events in turns, the kernel's device time per launch kind (tile
+   sort, merge rounds, slot step; ``torch.profiler``), with the work's bytes
+   bound (the rows read, the
+   candidates and best length and distance written) and the plain
+   version's sort traffic beside it, and the kernels' ptxas report.
 13. device-assisted encode: ``encode_lzma2_device(device="cuda")`` of phase
-   3's data at its defaults (64 KiB chunks, batches of 32 lanes): the stream
+   3's data at its defaults (64 KiB chunks, batches of 32 lanes), with
+   X2's launch count set to 0 just before (one launch a batch): the stream
    must decode to the original with Python's ``lzma`` and with K1, and its
    first 4 MiB must give the same stream through X2 on the CPU; its size is
    set beside ``encode_lzma2_mt``'s at the same dictionary and chunk.
@@ -199,8 +208,10 @@ P1 ``lane-notr``, with the window and blocks per SM that its launcher chose
 on phase 3; K2 has the bytes bound, which leaves out the scratch of its own
 design, and a chain bound, an estimate: the larger of its longest lane's ops
 at P1 ``lane``'s cost of a dependent shared-memory update and its longest
-chunk's bit calls at ``lane-notr``'s; X3 and X4's two kernels have their
-bytes bounds, measured on phases 17 and 18, which alone launch them, and
+chunk's bit calls at ``lane-notr``'s; X2 has the bytes bound of its work at
+the encoder's batch, timed on phase 12 and counted on phase 13; X3 and X4's
+two kernels have their bytes bounds, measured on phases 17 and 18, which
+alone launch them, and
 X4's BCJ2 also a chain bound: its longest lane's range-decoder steps at
 ``lane-notr``'s cost of a dependent bit call).  Any failure exits
 non-zero.
@@ -1356,20 +1367,49 @@ def encode_bigblock(data: bytes, device) -> dict:
 
 
 def x2_bytes(lanes: int, L: int, n_cand: int, n_cand8: int) -> int:
-    """Bytes X2's sorts must move for ``lanes`` x ``L`` positions: in each
-    pass the key and the 4 payload words are read and written by the sort,
-    then the position, best length, best distance and the pass's candidate
-    distances by the sort back (int32 each)."""
+    """Bytes the JAX design's sorts must move for ``lanes`` x ``L``
+    positions (the plain version's): in each pass the key and the 4 payload
+    words are read and written by the sort, then the position, best length,
+    best distance and the pass's candidate distances by the sort back
+    (int32 each)."""
     return lanes * L * 4 * 2 * ((5 + 3 + n_cand) + (5 + 3 + n_cand8))
 
 
+def x2_work_bytes(lanes: int, L: int, n_cand: int, n_cand8: int) -> int:
+    """Bytes X2's work must move, whatever computes it: the rows and the
+    valid lengths read once, and per position the candidate distances, the
+    best length and the best distance (int32 each) written once."""
+    return lanes * L + lanes * 4 + lanes * L * (n_cand + n_cand8 + 2) * 4
+
+
+def x2_edge_lanes(data: bytes, L: int):
+    """4 lanes of ``L`` = 2^16: a zero lane with one word whose pass-1 hash
+    lands in bucket -1 (the padded slots' bucket) at position 1000, a zero
+    lane (one bucket holds the lane), and two lanes of the data with valid
+    7 and L - 12345 (the invalid marker wraps into bucket 0)."""
+    from lzma_sdk_zliblike_tpu_torch.ops.match_find import FIB
+    m1 = bytearray(L)
+    w0 = 0xFFFF1234 * pow(FIB, -1, 1 << 32) % (1 << 32)
+    m1[1000:1004] = w0.to_bytes(4, "little")
+    rows = np.stack([np.frombuffer(bytes(m1), np.uint8),
+                     np.zeros(L, np.uint8),
+                     np.frombuffer(data[11 * MIB:11 * MIB + L], np.uint8),
+                     np.frombuffer(data[66 * MIB:66 * MIB + L], np.uint8)])
+    return rows, np.array([L, L, 7, L - 12345], np.int32)
+
+
 def match_find_vs_cpu(data: bytes, device) -> dict:
-    """Phase 12: X2 on the card against the same function on the CPU, for 4
-    lanes of 64 KiB cut from the data (one with valid < L) and 1 lane of
-    2^17, at the encoder's 24 + 12 candidates and the default 3 + 2: every
-    output array identical (tolerance 0).  Then X2 alone on the card at the
-    encoder's batch (32 lanes of 64 KiB), timed by CUDA events."""
+    """Phase 12: X2's kernel on the card against its plain version (torch
+    ops) on the card and on the CPU, for 4 lanes of 64 KiB cut from the data
+    (one with valid < L), 1 lane of 2^17 and the 4 edge lanes of
+    ``x2_edge_lanes``, at the encoder's 24 + 12 candidates and the default
+    3 + 2: every output array identical (tolerance 0).  Then the kernel and
+    the plain version on the card at the encoder's batch (32 lanes of 64
+    KiB, 24 + 12, the candidates in the encoder's [S, L, K] layout), timed
+    by CUDA events in turns (plain, kernel, kernel, plain), and the
+    kernel's device time per launch kind by ``torch.profiler``."""
     import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import _build
     from lzma_sdk_zliblike_tpu_torch.ops import match_find as X2
     L = 64 << 10
     quad = np.stack([np.frombuffer(data[a:a + L], np.uint8)
@@ -1378,47 +1418,74 @@ def match_find_vs_cpu(data: bytes, device) -> dict:
     cases = []
     for name, rows, valid in (
             ("4x64KiB", quad, np.array([L, L, L - 12345, L], np.int32)),
-            ("1x128KiB", one, np.array([1 << 17], np.int32))):
+            ("1x128KiB", one, np.array([1 << 17], np.int32)),
+            ("edge_4x64KiB", *x2_edge_lanes(data, L))):
+        rows_c = torch.from_numpy(rows.copy()).to(device)
+        valid_c = torch.from_numpy(valid).to(device)
+        hb = X2.default_hash_bits(rows.shape[1])
         for n_cand, n_cand8 in ((24, 12), (3, 2)):
-            t = time.perf_counter()
-            card = X2.find_matches(rows, valid, n_cand=n_cand,
-                                   n_cand8=n_cand8, device=device)
-            card_ms = (time.perf_counter() - t) * 1e3
-            t = time.perf_counter()
-            cpu = X2.find_matches(rows, valid, n_cand=n_cand,
-                                  n_cand8=n_cand8, device="cpu")
-            cpu_ms = (time.perf_counter() - t) * 1e3
-            arrays = list(zip(card[:2] + card[2], cpu[:2] + cpu[2]))
+            kw = {"n_cand": n_cand, "n_cand8": n_cand8, "hash_bits": hb}
+            outs = {}
+            for what, fn, args in (
+                    ("kernel", X2.find_matches_tensor, (rows_c, valid_c)),
+                    ("plain_card", X2.find_matches_plain, (rows_c, valid_c)),
+                    ("plain_cpu", X2.find_matches_plain,
+                     (torch.from_numpy(rows.copy()), torch.from_numpy(valid)))):
+                t = time.perf_counter()
+                bl, bd, cds = fn(*args, **kw)
+                outs[what] = [x.cpu().numpy() for x in (bl, bd, cds)]
+                outs[what + "_ms"] = (time.perf_counter() - t) * 1e3
+            errs = [max(int(np.abs(a.astype(np.int64) - b).max())
+                        for a, b in zip(outs["kernel"], outs[other]))
+                    for other in ("plain_card", "plain_cpu")]
             cases.append({
                 "case": name, "candidates": [n_cand, n_cand8],
-                "identical": all(np.array_equal(a, b) for a, b in arrays),
-                "max_abs_err": max(int(np.abs(a.astype(np.int64) - b).max())
-                                   for a, b in arrays),
-                "card_ms_with_copies": card_ms, "cpu_ms": cpu_ms})
+                "identical": max(errs) == 0, "max_abs_err": max(errs),
+                "max_abs_err_vs_plain_card": errs[0],
+                "max_abs_err_vs_plain_cpu": errs[1],
+                "kernel_ms_with_copy": outs["kernel_ms"],
+                "plain_card_ms_with_copy": outs["plain_card_ms"],
+                "plain_cpu_ms": outs["plain_cpu_ms"]})
     lanes = 32
     rows = torch.from_numpy(np.frombuffer(data[:lanes * L], np.uint8)
                             .reshape(lanes, L).copy()).to(device)
     valid = torch.full((lanes,), L, dtype=torch.int32, device=device)
 
-    def batch():
-        return X2.find_matches_tensor(
-            rows, valid, n_cand=24, n_cand8=12,
-            hash_bits=X2.default_hash_bits(L))[2].permute(0, 2, 1).contiguous()
-    batch()
-    torch.cuda.synchronize()
+    def batch(fn):
+        return fn(rows, valid, n_cand=24, n_cand8=12,
+                  hash_bits=X2.default_hash_bits(L))[2].permute(
+                      0, 2, 1).contiguous()
     reps = 5
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.reset_peak_memory_stats(device)
-    t0.record()
-    for _ in range(reps):
-        batch()
-    t1.record()
-    torch.cuda.synchronize()
-    ms = t0.elapsed_time(t1) / reps
+    times = {"kernel": [], "plain": []}
+    peak = {}
+    for what in ("plain", "kernel", "kernel", "plain"):
+        fn = X2.find_matches_tensor if what == "kernel" \
+            else X2.find_matches_plain
+        batch(fn)
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.reset_peak_memory_stats(device)
+        t0.record()
+        for _ in range(reps):
+            batch(fn)
+        t1.record()
+        torch.cuda.synchronize()
+        times[what].append(t0.elapsed_time(t1) / reps)
+        peak[what] = torch.cuda.max_memory_allocated(device)
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
     res = {"cases": cases, "batch_lanes": lanes, "batch_L": L,
-           "batch_ms": ms, "ms_per_mib": ms / (lanes * L / MIB),
-           "batch_peak_bytes": torch.cuda.max_memory_allocated(device),
-           "bound_ms": x2_bytes(lanes, L, 24, 12) / HBM_BYTES_PER_S * 1e3,
+           "batch_ms": ms, "batch_ms_runs": times["kernel"],
+           "launch_ms": launch_ms(lambda: batch(X2.find_matches_tensor)),
+           "ms_per_mib": ms / (lanes * L / MIB),
+           "plain_batch_ms": plain_ms, "plain_batch_ms_runs": times["plain"],
+           "batch_peak_bytes": peak["kernel"],
+           "plain_batch_peak_bytes": peak["plain"],
+           "work_bytes": x2_work_bytes(lanes, L, 24, 12),
+           "bound_ms": x2_work_bytes(lanes, L, 24, 12) / HBM_BYTES_PER_S
+           * 1e3,
+           "sort_traffic_bound_ms": x2_bytes(lanes, L, 24, 12)
+           / HBM_BYTES_PER_S * 1e3,
+           "ptxas": ptxas_kernels(_build.ptxas_logs.get("match_find", "")),
            "max_abs_err": max(c["max_abs_err"] for c in cases)}
     res["pass"] = all(c["identical"] for c in cases)
     return res
@@ -1431,9 +1498,13 @@ def encode_device(data: bytes, device) -> dict:
     first 4 MiB must give the same stream through X2 on the CPU.  Its size
     is set beside the host MT encoder's at the same dictionary and chunk."""
     from lzma_sdk_zliblike_tpu_torch import encode_lzma2_device
+    from lzma_sdk_zliblike_tpu_torch.ops import match_find as X2
     from lzma_sdk_zliblike_tpu_torch.parallel.host_pool import encode_lzma2_mt
+    X2.launches = 0
     res, stream, prop, snap = encode_run(encode_lzma2_device, data,
                                          device=device)
+    res["k2_launches"] = res["launches"]
+    res["launches"] = X2.launches
 
     def total_ms(name):
         return snap.get(name, {}).get("total_s", 0.0) * 1e3
@@ -1462,7 +1533,8 @@ def encode_device(data: bytes, device) -> dict:
     res["host_mt_64k_packed"] = len(host)
     res["size_vs_host_mt"] = len(stream) / len(host)
     res["pass"] = (res["lzma_module_roundtrip"] and res["k1_roundtrip"]
-                   and res["first_4mib_cpu_equal"] and res["x2_batches"] > 0)
+                   and res["first_4mib_cpu_equal"] and res["x2_batches"] > 0
+                   and res["launches"] == res["x2_batches"])
     return res
 
 
@@ -2709,7 +2781,18 @@ def main() -> int:
         "name": "compact_probe (P2)", "route": "cuda",
         "source": "lzma_sdk_zliblike_tpu_torch/csrc/compact_probe.cu",
         "replaces": "tools/compact_probe.py:69", **k_p2,
-        "bound_by": "operations", "library_ms": None}, k_x3, *k_x4]})
+        "bound_by": "operations", "library_ms": None}, {
+        "name": "match_find (X2)", "route": "cuda",
+        "source": "lzma_sdk_zliblike_tpu_torch/csrc/match_find.cu",
+        "replaces": "lzma_sdk_zliblike_tpu/ops/match_find.py:48",
+        "launches": p13["launches"], "matches_plain": p12["pass"],
+        "max_abs_err": p12["max_abs_err"], "ms": p12["batch_ms"],
+        "plain_ms": p12["plain_batch_ms"], "bound_ms": p12["bound_ms"],
+        "bound_by": "bytes",
+        "sort_traffic_bound_ms": p12["sort_traffic_bound_ms"],
+        "library_ms": None, "batch": [p12["batch_lanes"], p12["batch_L"]],
+        "encode_device_match_find_ms": p13["match_find_ms"],
+        "encode_device_x2_batches": p13["x2_batches"]}, k_x3, *k_x4]})
     print(smi[0])
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

@@ -6,7 +6,7 @@ group queue (``decode_lzma2_hybrid``), or on host threads alone
 (``decode_lzma2_mt``); device-coded encode parses groups on host threads and
 range-codes them lane-parallel in a second one (K2), alone or beside host
 encoders on one group queue (``encode_lzma2_hybrid``); device-assisted
-encode finds match candidates on the card (X2, torch ops) for the host
+encode finds match candidates on the card (X2, a CUDA kernel) for the host
 coder (``encode_lzma2_device``).  ``containers/xz.py``
 reads and writes .xz images, its blocks decoded through the same engines.
 ``decode_groups_distributed`` / ``encode_groups_distributed`` deal the

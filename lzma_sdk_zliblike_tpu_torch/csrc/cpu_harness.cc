@@ -1,11 +1,12 @@
 // Test-only CPU build of the per-lane code that group_decode.cu (K1) and
 // range_encode.cu (K2) run on the GPU, of the per-element bit call of
 // the probes v12_probe.cu (P1) and compact_probe.cu (P2), of the tile and
-// fold schedule of checksum.cu (X3) and of the pieces of
-// device_filters.cu (X4): the same lzma_lane.cuh, lzma_enc_lane.cuh,
-// probe_lane.cuh, checksum_lane.cuh and filters_lane.cuh, compiled by g++,
-// looping over lanes or elements on the host (and, for K1, K2 and X4, over
-// the threads of a block).  The tests/test_torch_*.py
+// fold schedule of checksum.cu (X3), of the pieces of device_filters.cu
+// (X4) and of the tile sort, merge rounds and slot step of match_find.cu
+// (X2): the same lzma_lane.cuh, lzma_enc_lane.cuh, probe_lane.cuh,
+// checksum_lane.cuh, filters_lane.cuh and match_find_lane.cuh, compiled by
+// g++, looping over lanes or elements on the host (and, for K1, K2, X2 and
+// X4, over the threads of a block).  The tests/test_torch_*.py
 // files build it and hold it against the plain versions in ops/ and tools/;
 // the package never loads it.
 //
@@ -24,6 +25,7 @@
 #include "filters_lane.cuh"
 #include "lzma_enc_lane.cuh"
 #include "lzma_lane.cuh"
+#include "match_find_lane.cuh"
 #include "probe_lane.cuh"
 
 // lzt_group_decode (group_decode.cu) on the host, same arguments but the
@@ -977,6 +979,83 @@ extern "C" int lzt_bcj2_batch_cpu(const void* main, int main_w, const void* main
         if (o0 >= out_cap) continue;
         const int32_t o1 = out_cap - o0 < kBcj2Seg ? out_cap : o0 + kBcj2Seg;
         bcj2_place_run(o0, o1, site.data(), rel.data(), nload, kbase, L.main, main_lim, put);
+      }
+    }
+  }
+  return 0;
+}
+
+// X2 (match_find.cu) over S lanes of L bytes, same arguments as
+// lzt_match_find but the scratch and the stream, plus the kernels'
+// geometry: `tile` keys a sorted tile and `block` slots a slot block (each
+// cut to L).  Each pass plays the tile sort (every bitonic stage's pairs
+// last to first), the merge rounds (rc 2 if a round's destinations are not
+// a permutation of the lane) and the slot step (each block's staging, then
+// its threads last to first).
+extern "C" int lzt_match_find_cpu(const void* data, const void* valid, int S, int L, int n_cand,
+                                  int n_cand8, int hash_bits, int tile, int block,
+                                  void* best_len, void* best_dist, void* cands) {
+  using namespace lzt::mf;
+  int lb = 0;
+  while ((1ll << lb) < L) ++lb;
+  if (S < 1 || L < 1 || (1 << lb) != L || lb > 30 || n_cand < 1 || n_cand > 1024 ||
+      n_cand8 < 0 || n_cand8 > 1024 || hash_bits < 1 || hash_bits > 31 || tile < 1 ||
+      (tile & (tile - 1)) || block < 1 || (block & (block - 1)))
+    return 1;
+  if (tile > L) tile = L;
+  if (block > L) block = L;
+  const uint8_t* d = (const uint8_t*)data;
+  const int32_t* v = (const int32_t*)valid;
+  int32_t* bl_out = (int32_t*)best_len;
+  int32_t* bd_out = (int32_t*)best_dist;
+  const int ktot = n_cand + n_cand8;
+  std::vector<int32_t> a((size_t)S * L), b((size_t)S * L), s(tile);
+  std::vector<char> hit(L);
+  for (int pass = 0; pass < (n_cand8 ? 2 : 1); ++pass) {
+    const int K = pass ? n_cand8 : n_cand;
+    for (int lane = 0; lane < S; ++lane) {
+      const uint8_t* row = d + (size_t)lane * L;
+      for (int base = 0; base < L; base += tile) {
+        for (int j = 0; j < tile; ++j) s[j] = pass_key(row, L, lb, base + j, v[lane], pass, hash_bits);
+        for (int k = 2; k <= tile; k <<= 1)
+          for (int j = k >> 1; j > 0; j >>= 1)
+            for (int m = tile / 2 - 1; m >= 0; --m) bitonic_pair(s.data(), k, j, m);
+        std::memcpy(a.data() + (size_t)lane * L + base, s.data(), tile * sizeof(int32_t));
+      }
+    }
+    int32_t* src = a.data();
+    int32_t* dst = b.data();
+    for (int w = tile; w < L; w <<= 1) {
+      for (int lane = 0; lane < S; ++lane) {
+        const size_t row = (size_t)lane * L;
+        std::fill(hit.begin(), hit.end(), 0);
+        for (int i = L - 1; i >= 0; --i) {
+          const int at = merge_dest(src + row, w, i);
+          if (at < 0 || at >= L || hit[at]++) return 2;
+          dst[row + at] = src[row + i];
+        }
+      }
+      std::swap(src, dst);
+    }
+    std::vector<int32_t> keys(block + K);
+    std::vector<lzt::mf::word4> words(block + K);
+    for (int lane = 0; lane < S; ++lane) {
+      const uint8_t* row = d + (size_t)lane * L;
+      const int32_t* sk = src + (size_t)lane * L;
+      for (int i0 = L - block; i0 >= 0; i0 -= block) {
+        for (int e = 0; e < block + K; ++e)
+          stage_slot(row, sk, L, lb, i0 - K + e, &keys[e], &words[e]);
+        for (int t = block - 1; t >= 0; --t) {
+          const int e = K + t;
+          const size_t at = (size_t)lane * L + (keys[e] & (L - 1));
+          int32_t bl, bd;
+          slot_step(&keys[e], &words[e], K, lb, L, v[lane], (int32_t*)cands + at * ktot +
+                    (pass ? n_cand : 0), &bl, &bd);
+          if (pass == 0 || bl > bl_out[at]) {
+            bl_out[at] = bl;
+            bd_out[at] = bd;
+          }
+        }
       }
     }
   }

@@ -1,18 +1,34 @@
-"""X2, the sorted-bucket match finder, with torch ops on the card.
+"""X2, the sorted-bucket match finder: a hand-written CUDA kernel on the
+card, torch ops as its plain version.
 
 The counterpart of the JAX package's ``ops/match_find.py`` (``_find`` :48,
-``find_matches`` :123), which is plain JAX, not a Pallas kernel, so it
-becomes torch ops here (``torch.sort``, ``torch.gather``), not a hand
-kernel.  Per lane (one chunk of L bytes, L a power of two):
+``find_matches`` :123), which is plain JAX, not a Pallas kernel.  Per lane
+(one chunk of L bytes, L a power of two) and pass (4-byte, then 8-byte
+prefixes):
 
 1. hash each position's 4-byte prefix (Fibonacci multiply; the second pass
    mixes in bytes 4-7);
 2. sort ``(hash << log2 L) | pos`` once per lane: positions sharing a bucket
    become adjacent in position order, so the K nearest earlier positions of
    a bucket are the K previous sort slots;
-3. carry each position's first 16 bytes through the sort as 4 payload
-   words, so a candidate's 16-byte-capped match length is a payload XOR;
-4. sort back to position order by the slot's position.
+3. measure each candidate's 16-byte-capped match length from the lane's
+   bytes, and keep the first of the longest;
+4. put each slot's results back at its position.
+
+On a CUDA tensor ``find_matches_tensor`` launches the kernel
+(``csrc/match_find.cu``, the per-thread pieces in
+``csrc/match_find_lane.cuh``): per pass a bitonic sort of tiles of 8,192
+keys in shared memory, merge rounds in global memory, and a
+thread per sorted slot that writes its candidates' distances straight to
+their position in the ``[S, L, K]`` layout the host coder reads (the
+scatter takes the place of the sort back).  The candidates come back as the
+``[S, K, L]`` view of that storage.  ``launches`` counts its calls on the
+card (one a call: each call is the two passes' launches).  There is no
+fallback: a failed build or launch raises.
+
+On a CPU tensor it runs ``find_matches_plain``, the torch ops that carry
+each position's 16 bytes through ``torch.sort`` as 4 payload words (the
+JAX design) and sort back by position.
 
 The outputs are bit-identical to the JAX function's, including its int32
 key: ``hh << lb`` keeps only the hash bits below ``32 - lb``, so at
@@ -20,12 +36,15 @@ L >= 2^16 the invalid-position marker ``1 << hash_bits`` wraps into bucket
 0 and at L >= 2^17 hash bits are lost (ROADMAP queue 3).  That costs
 candidate quality, never data, because the host parse measures each
 candidate again; the port keeps the wrap so that its candidates equal the
-JAX package's.  Unsigned 32-bit products are computed in int64 from 16-bit
-halves of the constant (no int64 overflow) and masked to 32 bits before
-their logical shift.
+JAX package's.  In the plain version unsigned 32-bit products are computed
+in int64 from 16-bit halves of the constant (no int64 overflow) and masked
+to 32 bits before their logical shift.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,6 +52,15 @@ import torch
 FIB = 2654435761
 FIB2 = 2246822519
 _M32 = 0xFFFFFFFF
+
+MAX_CAND = 1024      # candidates a pass at most (kMaxCand)
+
+launches = 0         # kernel calls on the card; set to 0 to count
+
+# lzt_match_find(data, valid, S, L, n_cand, n_cand8, hash_bits, keys_a,
+# keys_b, best_len, best_dist, cands, stream) in csrc/match_find.cu
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _P) + (_I,) * 5 + (_P,) * 6
 
 
 def _mul32(w: torch.Tensor, c: int) -> torch.Tensor:
@@ -115,11 +143,11 @@ def _pass(words, pos, valid, h, min_pref: int, n_k: int, lb: int,
             torch.gather(dist, 2, order[:, None].expand(-1, n_k, -1)))
 
 
-def find_matches_tensor(data: torch.Tensor, valid: torch.Tensor, *,
-                        n_cand: int, n_cand8: int, hash_bits: int):
-    """X2 on the tensors' device: data uint8 [S, L], valid int32 [S] ->
-    (best_len [S, L], best_dist [S, L], candidate distances [S, n_cand +
-    n_cand8, L]), int32."""
+def find_matches_plain(data: torch.Tensor, valid: torch.Tensor, *,
+                       n_cand: int, n_cand8: int, hash_bits: int):
+    """X2's plain version in torch ops, on the tensors' device: data uint8
+    [S, L], valid int32 [S] -> (best_len [S, L], best_dist [S, L],
+    candidate distances [S, n_cand + n_cand8, L] contiguous), int32."""
     S, L = data.shape
     lb = (L - 1).bit_length()
     b = data.to(torch.int64)
@@ -158,6 +186,63 @@ def find_matches_tensor(data: torch.Tensor, valid: torch.Tensor, *,
     return best_len, best_dist, dists
 
 
+@functools.lru_cache(maxsize=None)
+def _fn():
+    from . import _build
+    fn = _build.library("match_find").lzt_match_find
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(_ARGTYPES)
+    return fn
+
+
+def find_matches_tensor(data: torch.Tensor, valid: torch.Tensor, *,
+                        n_cand: int, n_cand8: int, hash_bits: int):
+    """X2 on the tensors' device: data uint8 [S, L] (contiguous), valid
+    int32 [S] -> (best_len [S, L], best_dist [S, L], candidate distances
+    [S, n_cand + n_cand8, L]), int32.
+
+    On the card this launches the kernel on the current stream, and the
+    candidates are the [S, K, L] view of [S, L, K] storage (``permute(0, 2,
+    1)`` gives it back without a copy); on the CPU it runs
+    ``find_matches_plain``."""
+    global launches
+    if data.device.type == "cpu":
+        return find_matches_plain(data, valid, n_cand=n_cand,
+                                  n_cand8=n_cand8, hash_bits=hash_bits)
+    if data.device.type != "cuda":
+        raise ValueError(f"unsupported device {data.device}")
+    if data.dtype != torch.uint8 or data.dim() != 2 \
+            or not data.is_contiguous() or data.data_ptr() % 4:
+        raise ValueError("data must be a contiguous, 4-byte aligned uint8 "
+                         "[S, L] tensor")
+    S, L = data.shape
+    if L & (L - 1) or not 0 < L <= 1 << 30 or not 0 < S <= 65535:
+        raise ValueError(f"unsupported shape [{S}, {L}]: L a power of two "
+                         "up to 2^30, S from 1 to 65535")
+    if valid.dtype != torch.int32 or valid.shape != (S,) \
+            or not valid.is_contiguous() or valid.device != data.device:
+        raise ValueError("valid must be a contiguous int32 [S] tensor on "
+                         "data's device")
+    if not (1 <= n_cand <= MAX_CAND and 0 <= n_cand8 <= MAX_CAND
+            and 1 <= hash_bits <= 31):
+        raise ValueError(f"unsupported n_cand={n_cand}, n_cand8={n_cand8}, "
+                         f"hash_bits={hash_bits}")
+    dev = data.device
+    out = torch.empty((2, S, L), dtype=torch.int32, device=dev)
+    cands = torch.empty((S, L, n_cand + n_cand8), dtype=torch.int32,
+                        device=dev)
+    keys = torch.empty((2, S, L), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _fn()(data.data_ptr(), valid.data_ptr(), S, L, n_cand, n_cand8,
+                   hash_bits, keys[0].data_ptr(), keys[1].data_ptr(),
+                   out[0].data_ptr(), out[1].data_ptr(), cands.data_ptr(),
+                   torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"match_find kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out[0], out[1], cands.permute(0, 2, 1)
+
+
 def default_hash_bits(L: int) -> int:
     return max(12, min(17, (L - 1).bit_length()))
 
@@ -179,7 +264,7 @@ def find_matches(data, valid, *, n_cand: int = 3, n_cand8: int = 2,
     def tensor(x, np_dtype, dtype):
         if not torch.is_tensor(x):
             x = torch.from_numpy(np.array(x, np_dtype))     # a writable copy
-        return x.to(device=device, dtype=dtype)
+        return x.to(device=device, dtype=dtype).contiguous()
     data = tensor(data, np.uint8, torch.uint8)
     S, L = data.shape
     if L & (L - 1):

@@ -12,8 +12,9 @@ three entry points:
 * ``encode_lzma2_hybrid`` (JAX :212-369): host workers and a K2 feeder
   drain one group queue.
 * ``encode_lzma2_device`` (JAX :27-72): the match finder X2
-  (``ops/match_find.py``) finds each position's candidates on the card and
-  the host parse and coder (``native.lzma2_encode_ext``) consume them.
+  (``ops/match_find.py``, the kernel ``csrc/match_find.cu``) finds each
+  position's candidates on the card and the host parse and coder
+  (``native.lzma2_encode_ext``) consume them.
 
 The device-coded and hybrid streams are byte-identical to
 ``host_pool.encode_lzma2_mt`` at the same parameters (``effort=9``),
@@ -462,7 +463,9 @@ def encode_lzma2_device(data: bytes, *, dict_size: int = 1 << 16,
             torch.from_numpy(rows).to(device),
             torch.from_numpy(valid).to(device), n_cand=n_cand,
             n_cand8=n_cand8, hash_bits=hash_bits)
-        ext = cands.permute(0, 2, 1).contiguous()      # [S, L, K]
+        # [S, L, K]: the kernel's own storage, so no copy on the card (the
+        # plain version on the CPU gives [S, K, L] and is copied here)
+        ext = cands.permute(0, 2, 1).contiguous()
         del cands
         if marks is not None:
             marks[1].record()

@@ -2,13 +2,14 @@
 
 The harness compiles the kernels' own per-lane sources (``lzma_lane.cuh``
 for K1, ``lzma_enc_lane.cuh`` for K2, ``probe_lane.cuh`` for the probes P1
-and P2, ``checksum_lane.cuh`` for X3, ``filters_lane.cuh`` for X4) for the
-host, so the tests can run the
+and P2, ``checksum_lane.cuh`` for X3, ``filters_lane.cuh`` for X4,
+``match_find_lane.cuh`` for X2) for the host, so the tests can run the
 code the GPU runs.  It goes to ``build/torch_kernels_cpu/`` under a hash of
 its sources and is shared by the test files that load this module by path
 (a foreign package named ``tests`` may shadow this directory).
 ``x86_batch`` and ``bcj2_batch`` call X4's two entry points on numpy
-arrays, at the kernels' block geometry unless told otherwise.
+arrays, at the kernels' block geometry unless told otherwise;
+``match_find_batch`` calls X2's.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "lzma_sdk_zliblike_tpu_torch", "csrc")
 SOURCES = ("cpu_harness.cc", "lzma_lane.cuh", "lzma_enc_lane.cuh",
-           "probe_lane.cuh", "checksum_lane.cuh", "filters_lane.cuh")
+           "probe_lane.cuh", "checksum_lane.cuh", "filters_lane.cuh",
+           "match_find_lane.cuh")
 
 
 def build() -> ctypes.CDLL | None:
@@ -92,3 +94,29 @@ def bcj2_batch(lib, streams, lens, out_size, threads=BCJ2_THREADS):
     assert fn(*args, osz.ctypes.data, out.ctypes.data, cap, ok.ctypes.data,
               S, info.ctypes.data, threads) == 0
     return out, ok != 0, info
+
+
+# X2's geometry in csrc/match_find.cu: keys a sorted tile (kSortTile) and
+# slots a slot block (kThreads)
+X2_TILE, X2_BLOCK = 8192, 256
+
+
+def match_find_batch(lib, data, valid, n_cand, n_cand8, hash_bits,
+                     tile=X2_TILE, block=X2_BLOCK):
+    """``lzt_match_find_cpu`` over numpy lanes: (best_len [S, L], best_dist
+    [S, L], cands [S, L, n_cand + n_cand8]), int32.  The outputs start as
+    0x5A5A5A5A, so a slot the kernels miss shows."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.lzt_match_find_cpu
+    fn.restype, fn.argtypes = ctypes.c_int, [P, P] + [I] * 7 + [P] * 3
+    d = np.ascontiguousarray(data, np.uint8)
+    v = np.ascontiguousarray(valid, np.int32)
+    S, L = d.shape
+    poison = 0x5A5A5A5A
+    bl = np.full((S, L), poison, np.int32)
+    bd = np.full((S, L), poison, np.int32)
+    cands = np.full((S, L, n_cand + n_cand8), poison, np.int32)
+    rc = fn(d.ctypes.data, v.ctypes.data, S, L, n_cand, n_cand8, hash_bits,
+            tile, block, bl.ctypes.data, bd.ctypes.data, cands.ctypes.data)
+    assert rc == 0, rc
+    return bl, bd, cands
