@@ -115,15 +115,17 @@ Phases, each printed as one JSON line:
 12. X2 vs plain: the match finder's kernel (``ops/match_find.py``,
    ``csrc/match_find.cu``) on the card against its plain version (torch
    ops) on the card and on the CPU, 4 lanes of 64 KiB (one short), 1 lane
-   of 2^17 and 4 edge lanes of 2^16 (a word in bucket -1, the padded
-   slots' bucket; a zero lane; valid 7 and L - 12345), at 24 + 12 and 3 +
-   2 candidates: every output identical (tolerance 0); then the kernel and
-   the plain version at the encoder's batch (32 lanes of 64 KiB), timed by
-   CUDA events in turns, the kernel's device time per launch kind (tile
-   sort, merge rounds, slot step; ``torch.profiler``), with the work's bytes
-   bound (the rows read, the
-   candidates and best length and distance written) and the plain
-   version's sort traffic beside it, and the kernels' ptxas report.
+   of 2^17, 1 lane of 2^18 (too long for shared memory: the row launch
+   reads the row through L2) and 4 edge lanes of 2^16 (a word in bucket
+   -1, the padded slots' bucket; a zero lane; valid 7 and L - 12345), at
+   24 + 12 and 3 + 2 candidates: every output identical (tolerance 0);
+   then the kernel and the plain version at the encoder's batch (32 lanes
+   of 64 KiB), timed by CUDA events in turns, the kernel's device time per
+   launch kind (tile sort, merge rounds, row launch; ``torch.profiler``),
+   with the work's bytes bound (the rows read, the candidates and best
+   length and distance written) and the plain version's sort traffic
+   beside it, the kernels' ptxas report and the row launch's dynamic
+   shared memory.
 13. device-assisted encode: ``encode_lzma2_device(device="cuda")`` of phase
    3's data at its defaults (64 KiB chunks, batches of 32 lanes), with
    X2's launch count set to 0 just before (one launch a batch): the stream
@@ -220,6 +222,7 @@ non-zero.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import hashlib
 import importlib.util
 import json
@@ -1401,7 +1404,8 @@ def x2_edge_lanes(data: bytes, L: int):
 def match_find_vs_cpu(data: bytes, device) -> dict:
     """Phase 12: X2's kernel on the card against its plain version (torch
     ops) on the card and on the CPU, for 4 lanes of 64 KiB cut from the data
-    (one with valid < L), 1 lane of 2^17 and the 4 edge lanes of
+    (one with valid < L), 1 lane of 2^17, 1 lane of 2^18 (its row read
+    through L2) and the 4 edge lanes of
     ``x2_edge_lanes``, at the encoder's 24 + 12 candidates and the default
     3 + 2: every output array identical (tolerance 0).  Then the kernel and
     the plain version on the card at the encoder's batch (32 lanes of 64
@@ -1415,10 +1419,12 @@ def match_find_vs_cpu(data: bytes, device) -> dict:
     quad = np.stack([np.frombuffer(data[a:a + L], np.uint8)
                      for a in (0, 5 * MIB, 37 * MIB + 123, 90 * MIB)])
     one = np.frombuffer(data[70 * MIB:70 * MIB + (1 << 17)], np.uint8)[None]
+    big = np.frombuffer(data[99 * MIB:99 * MIB + (1 << 18)], np.uint8)[None]
     cases = []
     for name, rows, valid in (
             ("4x64KiB", quad, np.array([L, L, L - 12345, L], np.int32)),
             ("1x128KiB", one, np.array([1 << 17], np.int32)),
+            ("1x256KiB", big, np.array([(1 << 18) - 777], np.int32)),
             ("edge_4x64KiB", *x2_edge_lanes(data, L))):
         rows_c = torch.from_numpy(rows.copy()).to(device)
         valid_c = torch.from_numpy(valid).to(device)
@@ -1487,6 +1493,12 @@ def match_find_vs_cpu(data: bytes, device) -> dict:
            / HBM_BYTES_PER_S * 1e3,
            "ptxas": ptxas_kernels(_build.ptxas_logs.get("match_find", "")),
            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+    # the row launch's dynamic shared memory at 24 + 12: the batch's lanes
+    # (the row staged) and the 2^18 lane (the row read through L2)
+    shared = _build.library("match_find").lzt_match_find_shared
+    shared.restype, shared.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    res["row_shared_bytes"] = {str(n): shared(n, 24, 12)
+                               for n in (L, 1 << 18)}
     res["pass"] = all(c["identical"] for c in cases)
     return res
 
@@ -1991,7 +2003,7 @@ def launch_ms(fn, reps: int = 3) -> dict:
     """ms of device time per call of each CUDA kernel that ``fn()`` launches,
     by ``torch.profiler`` over ``reps`` calls after a warm-up, keyed by the
     kernel's name (its last scope, up to its parameter or template
-    list)."""
+    list, without a return type)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2005,7 +2017,8 @@ def launch_ms(fn, reps: int = 3) -> dict:
         us = getattr(e, "device_time_total", None) or getattr(
             e, "cuda_time_total", 0)
         key = e.key.replace("(anonymous namespace)::", "")
-        name = re.split(r"[(<]", key)[0].split("::")[-1].strip()
+        name = re.split(r"[(<]", key)[0].split("::")[-1].split()
+        name = name[-1] if name else ""
         if us and name:
             out[name] = out.get(name, 0.0) + us * 1e-3 / reps
     return out

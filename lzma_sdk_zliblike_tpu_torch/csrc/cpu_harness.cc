@@ -987,44 +987,57 @@ extern "C" int lzt_bcj2_batch_cpu(const void* main, int main_w, const void* main
 
 // X2 (match_find.cu) over S lanes of L bytes, same arguments as
 // lzt_match_find but the scratch and the stream, plus the kernels'
-// geometry: `tile` keys a sorted tile and `block` slots a slot block (each
-// cut to L).  Each pass plays the tile sort (every bitonic stage's pairs
-// last to first), the merge rounds (rc 2 if a round's destinations are not
-// a permutation of the lane) and the slot step (each block's staging, then
-// its threads last to first).
+// geometry: `tile` keys a sorted tile, `run` positions a row block owns and
+// `threads` threads of a row block (each cut as the kernels cut them), and
+// `staged`: the row block reads its row from a staged copy (1, the row in
+// shared memory) or from the row itself (0, through global memory).  Each
+// pass plays the tile sort (every bitonic stage's pairs last to first) and
+// the merge rounds (rc 2 if a round's destinations are not a permutation
+// of the lane); the launch that puts the keys in their final order, the
+// last round or the tile sort of a one-tile lane, places them with their
+// ranks (rc 3 if the ranks are not a permutation).  Then the row launch,
+// its blocks last to first: the row's staging, and per chunk its threads'
+// parts, each group's best (the kernel's shuffles), then the stores of
+// the three staged arrays, threads last to first.
 extern "C" int lzt_match_find_cpu(const void* data, const void* valid, int S, int L, int n_cand,
-                                  int n_cand8, int hash_bits, int tile, int block,
-                                  void* best_len, void* best_dist, void* cands) {
+                                  int n_cand8, int hash_bits, int tile, int run, int threads,
+                                  int staged, void* best_len, void* best_dist, void* cands) {
   using namespace lzt::mf;
   int lb = 0;
   while ((1ll << lb) < L) ++lb;
   if (S < 1 || L < 1 || (1 << lb) != L || lb > 30 || n_cand < 1 || n_cand > 1024 ||
       n_cand8 < 0 || n_cand8 > 1024 || hash_bits < 1 || hash_bits > 31 || tile < 1 ||
-      (tile & (tile - 1)) || block < 1 || (block & (block - 1)))
+      (tile & (tile - 1)) || run < 1 || (run & (run - 1)) || threads < 1 ||
+      (threads & (threads - 1)))
     return 1;
   if (tile > L) tile = L;
-  if (block > L) block = L;
+  int rounds = 0;
+  while ((tile << rounds) < L) ++rounds;
   const uint8_t* d = (const uint8_t*)data;
   const int32_t* v = (const int32_t*)valid;
-  int32_t* bl_out = (int32_t*)best_len;
-  int32_t* bd_out = (int32_t*)best_dist;
+  const size_t SL = (size_t)S * L;
   const int ktot = n_cand + n_cand8;
-  std::vector<int32_t> a((size_t)S * L), b((size_t)S * L), s(tile);
+  std::vector<int32_t> sorted(2 * SL), rank(2 * SL), spare(SL), s(tile);
   std::vector<char> hit(L);
   for (int pass = 0; pass < (n_cand8 ? 2 : 1); ++pass) {
-    const int K = pass ? n_cand8 : n_cand;
+    int32_t* sp = sorted.data() + pass * SL;
+    int32_t* rk = rank.data() + pass * SL;
+    int32_t* src = rounds & 1 ? spare.data() : sp;
+    int32_t* dst = rounds & 1 ? sp : spare.data();
     for (int lane = 0; lane < S; ++lane) {
       const uint8_t* row = d + (size_t)lane * L;
+      const size_t at = (size_t)lane * L;
       for (int base = 0; base < L; base += tile) {
         for (int j = 0; j < tile; ++j) s[j] = pass_key(row, L, lb, base + j, v[lane], pass, hash_bits);
         for (int k = 2; k <= tile; k <<= 1)
           for (int j = k >> 1; j > 0; j >>= 1)
             for (int m = tile / 2 - 1; m >= 0; --m) bitonic_pair(s.data(), k, j, m);
-        std::memcpy(a.data() + (size_t)lane * L + base, s.data(), tile * sizeof(int32_t));
+        for (int j = tile - 1; j >= 0; --j) {
+          if (rounds) src[at + base + j] = s[j];
+          else place_key(src + at, rk + at, L, base + j, s[j]);
+        }
       }
     }
-    int32_t* src = a.data();
-    int32_t* dst = b.data();
     for (int w = tile; w < L; w <<= 1) {
       for (int lane = 0; lane < S; ++lane) {
         const size_t row = (size_t)lane * L;
@@ -1032,29 +1045,61 @@ extern "C" int lzt_match_find_cpu(const void* data, const void* valid, int S, in
         for (int i = L - 1; i >= 0; --i) {
           const int at = merge_dest(src + row, w, i);
           if (at < 0 || at >= L || hit[at]++) return 2;
-          dst[row + at] = src[row + i];
+          if (2 * w == L) place_key(dst + row, rk + row, L, at, src[row + i]);
+          else dst[row + at] = src[row + i];
         }
       }
       std::swap(src, dst);
     }
-    std::vector<int32_t> keys(block + K);
-    std::vector<lzt::mf::word4> words(block + K);
     for (int lane = 0; lane < S; ++lane) {
-      const uint8_t* row = d + (size_t)lane * L;
-      const int32_t* sk = src + (size_t)lane * L;
-      for (int i0 = L - block; i0 >= 0; i0 -= block) {
-        for (int e = 0; e < block + K; ++e)
-          stage_slot(row, sk, L, lb, i0 - K + e, &keys[e], &words[e]);
-        for (int t = block - 1; t >= 0; --t) {
-          const int e = K + t;
-          const size_t at = (size_t)lane * L + (keys[e] & (L - 1));
-          int32_t bl, bd;
-          slot_step(&keys[e], &words[e], K, lb, L, v[lane], (int32_t*)cands + at * ktot +
-                    (pass ? n_cand : 0), &bl, &bd);
-          if (pass == 0 || bl > bl_out[at]) {
-            bl_out[at] = bl;
-            bd_out[at] = bd;
+      std::fill(hit.begin(), hit.end(), 0);
+      for (int p = 0; p < L; ++p) {
+        const int32_t r = rk[(size_t)lane * L + p];
+        if (r < 0 || r >= L || hit[r]++) return 3;
+      }
+    }
+  }
+  int chunk, run_len;
+  row_geometry(threads, run, L, ktot, &chunk, &run_len);
+  const int active = chunk * kGroup;
+  std::vector<int32_t> stage((size_t)chunk * ktot), sbl(chunk), sbd(chunk);
+  std::vector<Best> b1(active), b2(active), r1(chunk), r2(chunk);
+  std::vector<uint32_t> words(staged_row_words(L));
+  int32_t* bl_out = (int32_t*)best_len;
+  int32_t* bd_out = (int32_t*)best_dist;
+  int32_t* c_out = (int32_t*)cands;
+  for (int lane = 0; lane < S; ++lane) {
+    const size_t at = (size_t)lane * L;
+    const uint8_t* row = d + at;
+    const PassKeys k1 = pass_keys(sorted.data(), rank.data(), SL, at, 0);
+    const PassKeys k2 = pass_keys(sorted.data(), rank.data(), SL, at, 1);
+    for (int r0 = L - run_len; r0 >= 0; r0 -= run_len) {
+      for (int i = (int)words.size() - 1; staged && i >= 0; --i)
+        stage_row_word(row, L, words.data(), i);
+      for (int c0 = r0; c0 < r0 + run_len; c0 += chunk) {
+        for (int t = active - 1; t >= 0; --t) {
+          b1[t] = b2[t] = Best{-1, 0, 0};
+          if (staged)
+            chunk_part(StagedRow{words.data()}, k1, k2, n_cand, n_cand8, lb, L, v[lane], c0, t,
+                       stage.data(), b1[t], b2[t]);
+          else
+            chunk_part(GlobalRow{row, L}, k1, k2, n_cand, n_cand8, lb, L, v[lane], c0, t,
+                       stage.data(), b1[t], b2[t]);
+        }
+        for (int i = chunk - 1; i >= 0; --i) {     // the group shuffles
+          r1[i] = b1[i * kGroup];
+          r2[i] = b2[i * kGroup];
+          for (int g = 1; g < kGroup; ++g) {
+            keep_better(r1[i], b1[i * kGroup + g]);
+            keep_better(r2[i], b2[i * kGroup + g]);
           }
+        }
+        for (int i = chunk - 1; i >= 0; --i)
+          best_of_passes(r1[i], r2[i], n_cand8, &sbl[i], &sbd[i]);
+        for (int t = threads - 1; t >= 0; --t) {
+          store_staged(stage.data(), c_out + (at + c0) * ktot, chunk * ktot, t, threads);
+          store_staged(sbl.data(), bl_out + at + c0, chunk, t, threads);
+          store_staged(sbd.data(), bd_out + at + c0, chunk, t, threads);
         }
       }
     }

@@ -1,11 +1,12 @@
 // Per-thread pieces of X2, the sorted-bucket match finder (match_find.cu,
 // after ops/match_find.py of the JAX package): a position's pass key, a
 // compare-exchange of the bitonic tile sort, a key's place in a merge of two
-// sorted runs, a slot's 16 bytes, and the step of one sorted slot over its
-// K predecessors.  The kernels run these functions on the card;
-// cpu_harness.cc builds the very same code with g++ and plays the kernels'
-// schedule with it, so the tests can hold it against the JAX function on a
-// machine without a GPU.
+// sorted runs, the final placing of a key with its rank, and the row step:
+// a position's candidates of both passes measured against a lane's row,
+// staged, then stored by a block four words at a time.  The kernels run
+// these functions on the card; cpu_harness.cc builds the very same code
+// with g++ and plays the kernels' schedule with it, so the tests can hold it
+// against the JAX function on a machine without a GPU.
 //
 // The contract (JAX match_find.py:48-120), per lane of L bytes (L a power
 // of two, lb = log2 L) and pass (min_pref 4, then 8):
@@ -42,6 +43,7 @@ namespace mf {
 
 constexpr uint32_t kFib = 2654435761u;     // JAX match_find.py FIB
 constexpr uint32_t kFib2 = 2246822519u;    // FIB2
+constexpr int kStageBytes = 40960;         // a chunk's staged candidate rows at most
 
 // 16 bytes as four little-endian words.
 #ifdef __CUDACC__
@@ -91,15 +93,6 @@ __host__ __device__ __forceinline__ uint32_t row_word(const uint8_t* row, int L,
   return v;
 }
 
-__host__ __device__ __forceinline__ word4 row_words(const uint8_t* row, int L, int p) {
-  word4 w;
-  w.x = row_word(row, L, p);
-  w.y = row_word(row, L, p + 4);
-  w.z = row_word(row, L, p + 8);
-  w.w = row_word(row, L, p + 12);
-  return w;
-}
-
 // Position p's sort key in pass 0 (4-byte prefixes) or 1 (8-byte).
 __host__ __device__ __forceinline__ int32_t pass_key(const uint8_t* row, int L, int lb, int p,
                                                      int valid, int pass, int hash_bits) {
@@ -143,31 +136,180 @@ __host__ __device__ __forceinline__ int merge_dest(const int32_t* keys, int w, i
   return base + (i & (w - 1)) + lo;
 }
 
-// Slot s of a lane as the slot step reads it: its key and the 16 bytes at
-// its position; a padded slot (s < 0) has pad_key and zero bytes.
-__host__ __device__ __forceinline__ void stage_slot(const uint8_t* row, const int32_t* sorted,
-                                                    int L, int lb, int s, int32_t* key,
-                                                    word4* words) {
-  if (s < 0) {
-    *key = pad_key(lb);
-    words->x = words->y = words->z = words->w = 0;
-    return;
+// The launch that puts a lane's keys in their final order puts `key` at
+// slot s of `sorted` and records the inverse permutation: rank[pos] = s.
+__host__ __device__ __forceinline__ void place_key(int32_t* sorted, int32_t* rank, int L, int s,
+                                                   int32_t key) {
+  sorted[s] = key;
+  rank[key & (L - 1)] = s;
+}
+
+// Equal leading bytes of two 16-byte strings whose words differ by d0..d3.
+__host__ __device__ __forceinline__ int first_diff(uint32_t d0, uint32_t d1, uint32_t d2,
+                                                   uint32_t d3) {
+  return d0   ? ctz32(d0) >> 3
+         : d1 ? 4 + (ctz32(d1) >> 3)
+         : d2 ? 8 + (ctz32(d2) >> 3)
+         : d3 ? 12 + (ctz32(d3) >> 3)
+              : 16;
+}
+
+// A lane's row as the row step reads it: words(x) is bytes x..x+15 as
+// four little-endian words, 0 past L.  StagedRow reads a copy of the row
+// in shared memory, its words followed by 4 zero words (staged_row_words,
+// stage_row_word), so five aligned loads and funnels give any 16 bytes;
+// GlobalRow reads the row in device memory, for a lane longer than shared
+// memory holds.
+struct StagedRow {
+  const uint32_t* w;
+  __host__ __device__ __forceinline__ word4 words(int x) const {
+    const uint32_t* a = w + (x >> 2);
+    const int sh = (x & 3) * 8;
+    return word4{funnel(a[0], a[1], sh), funnel(a[1], a[2], sh), funnel(a[2], a[3], sh),
+                 funnel(a[3], a[4], sh)};
   }
-  *key = sorted[s];
-  *words = row_words(row, L, *key & (L - 1));
+};
+
+struct GlobalRow {
+  const uint8_t* row;
+  int L;
+  __host__ __device__ __forceinline__ word4 words(int x) const {
+    return word4{row_word(row, L, x), row_word(row, L, x + 4), row_word(row, L, x + 8),
+                 row_word(row, L, x + 12)};
+  }
+};
+
+// Equal leading bytes of the 16 at x of the row and the 16 in w.
+template <class Row>
+__host__ __device__ __forceinline__ int len16(const Row& row, int x, const word4& w) {
+  const word4 v = row.words(x);
+  return first_diff(v.x ^ w.x, v.y ^ w.y, v.z ^ w.z, v.w ^ w.w);
 }
 
-// Equal leading bytes of two 16-byte strings.
-__host__ __device__ __forceinline__ int lcp16(const word4& a, const word4& b) {
-  const uint32_t x[4] = {a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w};
-  for (int j = 0; j < 4; ++j)
-    if (x[j]) return 4 * j + (ctz32(x[j]) >> 3);
-  return 16;
+// Words of a row's staged copy: every word at x < L + 12 lies in it.
+__host__ __device__ __forceinline__ int staged_row_words(int L) { return (L + 3) / 4 + 4; }
+
+// Word i (i < staged_row_words(L)) of a row's staged copy.
+__host__ __device__ __forceinline__ void stage_row_word(const uint8_t* row, int L, uint32_t* out,
+                                                        int i) {
+  out[i] = 4 * i < L ? row_word(row, L, 4 * i) : 0;
 }
 
-// Four candidates' distances to a 16-byte aligned out[0..3]: one streaming
-// vector store on the card (the candidates are written once and read by
-// the copy to the host, so they need not stay in L2).
+// Equal leading bytes of w and 16 zero bytes (a padded slot's).
+__host__ __device__ __forceinline__ int zero_len(const word4& w) {
+  return first_diff(w.x, w.y, w.z, w.w);
+}
+
+// A best candidate so far: its length (-1: none yet), its k and distance.
+struct Best {
+  int len, k, dist;
+};
+
+// Threads a position's candidates are dealt to: thread g of its group
+// takes k = g + 1, g + 1 + kGroup, ...
+constexpr int kGroup = 2;
+
+// b becomes o where o is better: longer, or as long with a smaller k (the
+// first of the longest over the whole pass).  k differs between the
+// threads of a group, so the best of a group is one whatever the order.
+__host__ __device__ __forceinline__ void keep_better(Best& b, const Best& o) {
+  if (o.len > b.len || (o.len == b.len && o.k < b.k)) b = o;
+}
+
+// Thread g's share of one pass of position p (16 bytes w, avail = max(valid
+// - p, 0)), whose key sits at slot s of the pass's sorted keys: its
+// candidates k (k = 1..K, k - 1 = g mod kGroup) are slots s - k (a padded
+// slot below 0).  A candidate of p's bucket has distance p - q and length
+// min(its equal leading bytes with w, avail); any other, distance 0 and
+// length 0.  Each distance goes to out[k - 1]; returns the first of the
+// longest ({-1, K + 1, 0} where the thread has no candidate).  Four
+// candidates at a time: their keys loaded, then their bytes, then their
+// lengths met in ascending k.
+template <class Row>
+__host__ __device__ __forceinline__ Best pass_part(const Row& row, const int32_t* sorted, int s,
+                                                   int K, int g, int lb, int L, int p, int avail,
+                                                   const word4& w, int32_t* out) {
+  const int32_t bucket = sorted[s] >> lb;
+  Best b = {-1, K + 1, 0};
+  for (int k0 = g + 1; k0 <= K; k0 += 4 * kGroup) {
+    int32_t q[4];
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + j * kGroup;
+      q[j] = k <= K && s - k >= 0 ? sorted[s - k] : pad_key(lb);
+    }
+    int len[4];
+    for (int j = 0; j < 4; ++j) {
+      const bool pad = s - (k0 + j * kGroup) < 0;
+      len[j] = (q[j] >> lb) != bucket ? 0 : pad ? zero_len(w) : len16(row, q[j] & (L - 1), w);
+    }
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + j * kGroup;
+      if (k > K) break;
+      const bool same = (q[j] >> lb) == bucket;
+      const int dist = same ? p - (q[j] & (L - 1)) : 0;
+      const int n = len[j] < avail ? len[j] : avail;
+      out[k - 1] = dist;
+      if (n > b.len) b = Best{n, k, dist};
+    }
+  }
+  return b;
+}
+
+// A row block's geometry, in powers of two: `chunk` positions measured
+// between two stores (a group of kGroup of its `threads` each, as many
+// rows of ktot distances as the staging holds, at most L) and a run of
+// `run` positions a block (at most run_max and L, at least a chunk).
+__host__ __device__ __forceinline__ void row_geometry(int threads, int run_max, int L, int ktot,
+                                                      int* chunk, int* run) {
+  int c = 1;
+  while (2 * c * kGroup <= threads && 2 * c <= L && 2 * c * ktot * 4 <= kStageBytes) c *= 2;
+  int r = run_max < L ? run_max : L;
+  *chunk = c;
+  *run = r > c ? r : c;
+}
+
+// A pass's sorted keys and ranks of the lane whose keys start at `at`, in
+// scratch laid out [pass][S][L] (S * L = SL).
+struct PassKeys {
+  const int32_t* sorted;
+  const int32_t* rank;
+};
+
+__host__ __device__ __forceinline__ PassKeys pass_keys(const int32_t* sorted, const int32_t* rank,
+                                                       long long SL, long long at, int pass) {
+  return PassKeys{sorted + pass * SL + at, rank + pass * SL + at};
+}
+
+// Thread t of a row block on the chunk of positions c0.. of a lane (t <
+// chunk * kGroup): thread g = t mod kGroup of position i = t / kGroup,
+// p = c0 + i, found in each pass by its rank.  Its candidates' distances
+// go to row i of the staging (pass 1's K1, then pass 2's K2; K2 = 0: no
+// pass 2); its best of each pass to b1 and b2.
+template <class Row>
+__host__ __device__ __forceinline__ void chunk_part(const Row& row, const PassKeys& k1,
+                                                    const PassKeys& k2, int K1, int K2, int lb,
+                                                    int L, int valid, int c0, int t,
+                                                    int32_t* stage, Best& b1, Best& b2) {
+  const int i = t / kGroup, g = t % kGroup, p = c0 + i;
+  const word4 w = row.words(p);
+  const int avail = valid - p > 0 ? valid - p : 0;
+  int32_t* out = stage + i * (K1 + K2);
+  b1 = pass_part(row, k1.sorted, k1.rank[p], K1, g, lb, L, p, avail, w, out);
+  if (K2 > 0) b2 = pass_part(row, k2.sorted, k2.rank[p], K2, g, lb, L, p, avail, w, out + K1);
+}
+
+// A position's best length and distance from its groups' bests of each
+// pass: pass 1's, replaced by pass 2's where it is strictly longer.
+__host__ __device__ __forceinline__ void best_of_passes(const Best& b1, const Best& b2, int K2,
+                                                        int32_t* best_len, int32_t* best_dist) {
+  const Best& b = K2 > 0 && b2.len > b1.len ? b2 : b1;
+  *best_len = b.len;
+  *best_dist = b.dist;
+}
+
+// Four words to a 16-byte aligned out[0..3]: one streaming vector store on
+// the card (the candidates are written once and read by the copy to the
+// host, so they need not stay in L2).
 __host__ __device__ __forceinline__ void store4(int32_t* out, int32_t a, int32_t b, int32_t c,
                                                 int32_t d) {
 #ifdef __CUDA_ARCH__
@@ -180,55 +322,29 @@ __host__ __device__ __forceinline__ void store4(int32_t* out, int32_t a, int32_t
 #endif
 }
 
-// Candidate k of a slot of position p and bucket `bucket` whose 16 bytes
-// are w: its distance (0 unless it shares the bucket); its length raises
-// the running best (bl, bd) only where it is longer.
-__host__ __device__ __forceinline__ int32_t candidate(const int32_t* keys, const word4* words,
-                                                      int k, int lb, int L, int p, int32_t bucket,
-                                                      int avail, const word4& w, int& bl,
-                                                      int& bd) {
-  const int32_t q = keys[-k];
-  if ((q >> lb) != bucket) {
-    if (bl < 0) bl = bd = 0;
-    return 0;
+// Thread t of T's share of storing n staged words to dst[0..n) (dst 4-byte
+// aligned): the words before dst's first 16-byte boundary and after the
+// last whole group of four one at a time, every group between by one
+// 16-byte store (from one 16-byte load of the staging where it is
+// aligned), group g by thread g mod T, so a warp writes 512 contiguous
+// bytes.
+__host__ __device__ __forceinline__ void store_staged(const int32_t* stage, int32_t* dst, int n,
+                                                      int t, int T) {
+  int head = (int)((16 - ((uintptr_t)dst & 15)) & 15) >> 2;
+  if (head > n) head = n;
+  const int groups = (n - head) >> 2;
+  for (int i = t; i < head; i += T) dst[i] = stage[i];
+  for (int g = t; g < groups; g += T) {
+    const int i = head + 4 * g;
+#ifdef __CUDA_ARCH__
+    if (!((uintptr_t)(stage + i) & 15)) {
+      __stcs(reinterpret_cast<int4*>(dst + i), *reinterpret_cast<const int4*>(stage + i));
+      continue;
+    }
+#endif
+    store4(dst + i, stage[i], stage[i + 1], stage[i + 2], stage[i + 3]);
   }
-  const int dist = p - (q & (L - 1));
-  int len = lcp16(w, words[-k]);
-  if (len > avail) len = avail;
-  if (len > bl) {
-    bl = len;
-    bd = dist;
-  }
-  return dist;
-}
-
-// The step of one sorted slot: keys[0] and words[0] are the slot's,
-// keys[-k] and words[-k] its predecessor k (k = 1..K).  Candidate k's
-// distance goes to out[k - 1], four at a time from where out is 16-byte
-// aligned; the pass's best length and its distance (the first of the
-// longest) to *best_len and *best_dist.
-__host__ __device__ __forceinline__ void slot_step(const int32_t* keys, const word4* words, int K,
-                                                   int lb, int L, int valid, int32_t* out,
-                                                   int32_t* best_len, int32_t* best_dist) {
-  const int32_t key = keys[0];
-  const int p = key & (L - 1);
-  const int32_t bucket = key >> lb;
-  const int avail = valid - p > 0 ? valid - p : 0;
-  const word4 w = words[0];
-  int bl = -1, bd = 0, k = 1;
-  for (; k <= K && ((uintptr_t)(out + k - 1) & 15); ++k)
-    out[k - 1] = candidate(keys, words, k, lb, L, p, bucket, avail, w, bl, bd);
-  for (; k + 3 <= K; k += 4) {
-    const int32_t d0 = candidate(keys, words, k, lb, L, p, bucket, avail, w, bl, bd);
-    const int32_t d1 = candidate(keys, words, k + 1, lb, L, p, bucket, avail, w, bl, bd);
-    const int32_t d2 = candidate(keys, words, k + 2, lb, L, p, bucket, avail, w, bl, bd);
-    const int32_t d3 = candidate(keys, words, k + 3, lb, L, p, bucket, avail, w, bl, bd);
-    store4(out + k - 1, d0, d1, d2, d3);
-  }
-  for (; k <= K; ++k)
-    out[k - 1] = candidate(keys, words, k, lb, L, p, bucket, avail, w, bl, bd);
-  *best_len = bl;
-  *best_dist = bd;
+  for (int i = head + 4 * groups + t; i < n; i += T) dst[i] = stage[i];
 }
 
 }  // namespace mf

@@ -18,13 +18,15 @@ prefixes):
 On a CUDA tensor ``find_matches_tensor`` launches the kernel
 (``csrc/match_find.cu``, the per-thread pieces in
 ``csrc/match_find_lane.cuh``): per pass a bitonic sort of tiles of 8,192
-keys in shared memory, merge rounds in global memory, and a
-thread per sorted slot that writes its candidates' distances straight to
-their position in the ``[S, L, K]`` layout the host coder reads (the
-scatter takes the place of the sort back).  The candidates come back as the
-``[S, K, L]`` view of that storage.  ``launches`` counts its calls on the
-card (one a call: each call is the two passes' launches).  There is no
-fallback: a failed build or launch raises.
+keys in shared memory and merge rounds in global memory, the last of which
+also records each position's slot (its rank); then one launch in which a
+block owns a run of positions of a lane, holds the lane's row in shared
+memory, finds each position's candidates of both passes by its ranks, and
+writes their rows in position order to the ``[S, L, K]`` layout the host
+coder reads (the ranks take the place of the sort back).  The candidates
+come back as the ``[S, K, L]`` view of that storage.  ``launches`` counts
+its calls on the card (one a call: each call is the two passes'
+launches).  There is no fallback: a failed build or launch raises.
 
 On a CPU tensor it runs ``find_matches_plain``, the torch ops that carry
 each position's 16 bytes through ``torch.sort`` as 4 payload words (the
@@ -231,10 +233,12 @@ def find_matches_tensor(data: torch.Tensor, valid: torch.Tensor, *,
     out = torch.empty((2, S, L), dtype=torch.int32, device=dev)
     cands = torch.empty((S, L, n_cand + n_cand8), dtype=torch.int32,
                         device=dev)
-    keys = torch.empty((2, S, L), dtype=torch.int32, device=dev)
+    # the two passes' sorted keys, then their ranks and the merge rounds'
+    # other buffer
+    keys = torch.empty((5, S, L), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _fn()(data.data_ptr(), valid.data_ptr(), S, L, n_cand, n_cand8,
-                   hash_bits, keys[0].data_ptr(), keys[1].data_ptr(),
+                   hash_bits, keys[0].data_ptr(), keys[2].data_ptr(),
                    out[0].data_ptr(), out[1].data_ptr(), cands.data_ptr(),
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

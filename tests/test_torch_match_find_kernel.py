@@ -1,31 +1,41 @@
 """X2's kernel schedule, through its own pieces built for the CPU, against
 the JAX package's ``find_matches``.
 
-``csrc/match_find.cu`` runs each pass as a bitonic sort of tiles of keys in
-shared memory, merge rounds in global memory and a thread per sorted slot
-that measures its candidates and writes their distances at its position.
+``csrc/match_find.cu`` sorts each pass's keys (a bitonic sort of tiles in
+shared memory, merge rounds in global memory; the launch that places the
+keys last records each position's rank), then one row launch writes every
+position's row of both passes: a block owns a run of positions, reads the
+row from its copy in shared memory (or, for a lane too long for it, from
+global memory), stages a chunk's rows and stores them in position order.
 The harness (``csrc/cpu_harness.cc``) calls the same pieces of
-``match_find_lane.cuh`` in the kernels' order, at a given tile and slot
-block (the kernel's, and two others: many merge rounds, and one tile with
-blocks larger than it), playing each stage's threads last to first.  Every
-array must equal the JAX function's, int32 for int32 (tolerance 0): best
-length, best distance and every candidate distance, at 3 + 2 and 24 + 12
-candidates.
+``match_find_lane.cuh`` in the kernels' order, at a given tile, run and
+block (the kernel's, and two others: many merge rounds and runs of 32
+positions, and one tile with a block of more threads than a chunk), with
+the row staged or read in place, playing each stage's threads last to
+first.  Every array must equal the JAX function's, int32 for int32
+(tolerance 0): best length, best distance and every candidate distance, at
+3 + 2 and 24 + 12 candidates.
 
 Cases: the lanes of ``tests/test_torch_match_find.py`` (2^12, 2^16 with a
 short lane, 2^17 where the int32 key loses hash bits); a lane of 2^16 with
 one word whose hash lands in bucket -1, the bucket of the padded slots
 before slot 0; an all-zero lane of 2^16 (one bucket holds the lane); lanes
 with valid 0, 3, 7 and L - 12345 (the invalid marker wraps into bucket 0 at
-2^16); and a lane of 2^10 with more candidates than any bucket has
-positions.  Each JAX reference is computed once per module.
+2^16); lanes of 2^16 whose valid lengths end a block's run (8,192, 32,768,
+L - 8,192 and L: run ends in every geometry); and a lane of 2^10 with more
+candidates than any bucket has positions.  Each JAX reference is computed
+once per module.  Each named mutant of the new pieces (a wrong rank, pass
+2 reading pass 1's keys, pass 2 winning a tie, a row staged at its
+neighbour's offset), built from a changed copy of the sources, must fail.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import importlib.util
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -86,14 +96,18 @@ CASES = {
     "key_wrap_128k": lambda: (_rows(C.big_mixed(1 << 17, seed=9)),
                               np.array([1 << 17], np.int32)),
     "edge_64k": _edge_lanes,
+    "run_edges_64k": lambda: (
+        _rows(*[C.big_mixed(L64, seed=s) for s in (51, 52, 53, 54)]),
+        np.array([8192, 32768, L64 - 8192, L64], np.int32)),
 }
 ALL_CASES = {**CASES, "random_1k": lambda: (
     _rows(C.random_bytes(1 << 10, seed=41)), np.array([1 << 10], np.int32))}
 CANDS = [(3, 2), (24, 12)]
-# (tile keys, slot block): the kernel's; small tiles, so 2^16 takes 10
-# merge rounds; one tile of the lane (2^12) or several, with slot blocks
-# larger than a tile
-GEOMS = [(H.X2_TILE, H.X2_BLOCK), (64, 32), (4096, 1024)]
+# (tile keys, run, row block threads): the kernel's; small tiles, so 2^16
+# takes 10 merge rounds, and runs of 32 positions (8 a chunk); one tile of
+# the lane (2^12) or several, runs of 8,192 positions (cut to the lane) and
+# more threads than a chunk's groups
+GEOMS = [(H.X2_TILE, H.X2_RUN, H.X2_THREADS), (64, 32, 32), (4096, 8192, 2048)]
 
 
 @pytest.fixture(scope="module")
@@ -116,10 +130,11 @@ def _jax(name, n_cand, n_cand8):
     return bl, bd, np.stack(cds, axis=-1)         # cands as [S, L, K]
 
 
-def _harness(lib, name, n_cand, n_cand8, geom):
+def _harness(lib, name, n_cand, n_cand8, geom, staged=True):
     data, valid = _case(name)
     return H.match_find_batch(lib, data, valid, n_cand, n_cand8,
-                              M.default_hash_bits(data.shape[1]), *geom)
+                              M.default_hash_bits(data.shape[1]), *geom,
+                              staged=staged)
 
 
 def _assert_identical(got, ref):
@@ -128,11 +143,16 @@ def _assert_identical(got, ref):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("geom", GEOMS, ids=lambda g: f"{g[0]}x{g[1]}")
+def _geom_id(g):
+    return "x".join(map(str, g))
+
+
+@pytest.mark.parametrize("row", ["staged", "global"])
+@pytest.mark.parametrize("geom", GEOMS, ids=_geom_id)
 @pytest.mark.parametrize("cands", CANDS, ids=lambda c: f"{c[0]}+{c[1]}")
 @pytest.mark.parametrize("case", list(CASES))
-def test_schedule_bit_identical_to_jax(harness, case, cands, geom):
-    _assert_identical(_harness(harness, case, *cands, geom),
+def test_schedule_bit_identical_to_jax(harness, case, cands, geom, row):
+    _assert_identical(_harness(harness, case, *cands, geom, row == "staged"),
                       _jax(case, *cands))
 
 
@@ -152,7 +172,7 @@ def _pass1_buckets(row: np.ndarray, valid: int) -> np.ndarray:
     return (key[0] >> lb).numpy()
 
 
-@pytest.mark.parametrize("geom", GEOMS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("geom", GEOMS, ids=_geom_id)
 def test_more_candidates_than_any_bucket(harness, geom):
     """2^10 random bytes at 40 + 24 candidates: no bucket of pass 1 holds
     24 positions (pass 2's 8-byte buckets are finer), so most of each
@@ -232,3 +252,48 @@ def test_plain_version_on_cpu_tensors():
     ref = _jax("jax_test_4k", 3, 2)
     _assert_identical((a[0].numpy(), a[1].numpy(),
                        a[2].permute(0, 2, 1).numpy()), ref)
+
+
+# (file, text, mutant text): each changes one new piece of the kernels
+MUTANTS = {
+    "wrong_rank": ("match_find_lane.cuh", "rank[key & (L - 1)] = s;",
+                   "rank[key & (L - 1)] = s ^ 1;"),
+    "pass_2_reads_pass_1": ("match_find_lane.cuh",
+                            "PassKeys{sorted + pass * SL + at,",
+                            "PassKeys{sorted + at,"),
+    "pass_2_wins_a_tie": ("match_find_lane.cuh", "b2.len > b1.len",
+                          "b2.len >= b1.len"),
+    "row_staged_at_wrong_offset": ("match_find_lane.cuh",
+                                   "stage + i * (K1 + K2)",
+                                   "stage + (i ^ 1) * (K1 + K2)"),
+}
+
+
+@pytest.fixture(scope="module")
+def mutants(harness, tmp_path_factory):
+    """{name: the harness built from a copy of the sources with that one
+    change}, built in parallel (the directories made first: making them
+    is not thread-safe)."""
+    dirs = {name: tmp_path_factory.mktemp(name) for name in MUTANTS}
+
+    def one(name):
+        file, old, new = MUTANTS[name]
+        d = dirs[name]
+        for f in H.SOURCES:
+            shutil.copy(os.path.join(H.CSRC, f), d / f)
+        text = (d / file).read_text()
+        assert text.count(old) == 1, (name, old)
+        (d / file).write_text(text.replace(old, new))
+        return H.build(str(d), str(d))
+    with concurrent.futures.ThreadPoolExecutor(len(MUTANTS)) as pool:
+        return dict(zip(MUTANTS, pool.map(one, MUTANTS)))
+
+
+@pytest.mark.parametrize("name", list(MUTANTS))
+def test_mutant_fails(mutants, name):
+    """The check that holds the schedule to the JAX function catches each
+    mutant, with the row staged, on the 4 KiB lanes at 24 + 12."""
+    with pytest.raises(AssertionError):
+        _assert_identical(_harness(mutants[name], "jax_test_4k", 24, 12,
+                                   GEOMS[0]),
+                          _jax("jax_test_4k", 24, 12))

@@ -29,6 +29,14 @@ from lzma_sdk_zliblike_tpu_torch.ops import range_encode as R
 from lzma_sdk_zliblike_tpu_torch.utils.errors import ParamError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the JAX package's native library, loaded in this worker before the
+# module's first test (tests/torch_jax_native.py: a worker can lose the
+# JAX package's own build of it)
+_jnl = importlib.util.spec_from_file_location(
+    "lzt_torch_jax_native", os.path.join(REPO, "tests", "torch_jax_native.py"))
+_JNL = importlib.util.module_from_spec(_jnl)
+_jnl.loader.exec_module(_JNL)
+jax_native_loaded = _JNL.jax_native_loaded
 
 
 def _load(name, file):

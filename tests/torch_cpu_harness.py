@@ -29,22 +29,25 @@ SOURCES = ("cpu_harness.cc", "lzma_lane.cuh", "lzma_enc_lane.cuh",
            "match_find_lane.cuh")
 
 
-def build() -> ctypes.CDLL | None:
-    """The loaded harness library, or None when g++ is missing."""
+def build(csrc: str = CSRC,
+          out_dir: str = os.path.join(REPO, "build", "torch_kernels_cpu")
+          ) -> ctypes.CDLL | None:
+    """The loaded harness library of the sources in ``csrc`` (the
+    package's, or a changed copy of them), built into ``out_dir``, or None
+    when g++ is missing."""
     gxx = shutil.which("g++")
     if gxx is None:
         return None
     h = hashlib.sha256()
     for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(f.read())
-    out_dir = os.path.join(REPO, "build", "torch_kernels_cpu")
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, f"libcpu_harness_{h.hexdigest()[:16]}.so")
     if not os.path.exists(lib):
         tmp = f"{lib}.{os.getpid()}.tmp"
         subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o",
-                        tmp, os.path.join(CSRC, "cpu_harness.cc")],
+                        tmp, os.path.join(csrc, "cpu_harness.cc")],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)
@@ -96,19 +99,23 @@ def bcj2_batch(lib, streams, lens, out_size, threads=BCJ2_THREADS):
     return out, ok != 0, info
 
 
-# X2's geometry in csrc/match_find.cu: keys a sorted tile (kSortTile) and
-# slots a slot block (kThreads)
-X2_TILE, X2_BLOCK = 8192, 256
+# X2's geometry in csrc/match_find.cu: keys a sorted tile (kSortTile),
+# positions a row block owns (kRun) and threads of a row block
+# (kRowThreads)
+X2_TILE, X2_RUN, X2_THREADS = 8192, 2048, 512
 
 
 def match_find_batch(lib, data, valid, n_cand, n_cand8, hash_bits,
-                     tile=X2_TILE, block=X2_BLOCK):
+                     tile=X2_TILE, run=X2_RUN, threads=X2_THREADS,
+                     staged=True):
     """``lzt_match_find_cpu`` over numpy lanes: (best_len [S, L], best_dist
-    [S, L], cands [S, L, n_cand + n_cand8]), int32.  The outputs start as
-    0x5A5A5A5A, so a slot the kernels miss shows."""
+    [S, L], cands [S, L, n_cand + n_cand8]), int32.  ``staged`` reads the
+    row from its copy (the kernel's shared-memory row) rather than from
+    the row itself (its global-memory row).  The outputs start as
+    0x5A5A5A5A, so a word the kernels miss shows."""
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.lzt_match_find_cpu
-    fn.restype, fn.argtypes = ctypes.c_int, [P, P] + [I] * 7 + [P] * 3
+    fn.restype, fn.argtypes = ctypes.c_int, [P, P] + [I] * 9 + [P] * 3
     d = np.ascontiguousarray(data, np.uint8)
     v = np.ascontiguousarray(valid, np.int32)
     S, L = d.shape
@@ -117,6 +124,7 @@ def match_find_batch(lib, data, valid, n_cand, n_cand8, hash_bits,
     bd = np.full((S, L), poison, np.int32)
     cands = np.full((S, L, n_cand + n_cand8), poison, np.int32)
     rc = fn(d.ctypes.data, v.ctypes.data, S, L, n_cand, n_cand8, hash_bits,
-            tile, block, bl.ctypes.data, bd.ctypes.data, cands.ctypes.data)
+            tile, run, threads, int(staged), bl.ctypes.data, bd.ctypes.data,
+            cands.ctypes.data)
     assert rc == 0, rc
     return bl, bd, cands
