@@ -13,7 +13,7 @@ Phases, each printed as one JSON line:
 1. build: nvcc builds every kernel of the paths (``csrc/*.cu``: K1
    ``group_decode``, K2 ``range_encode``, P1 ``v12_probe``, P2
    ``compact_probe``, X2 ``match_find``, X3 ``checksum``, X4
-   ``device_filters``) for sm_90a;
+   ``device_filters``, ``branch_filters``) for sm_90a;
    the ``-Xptxas -v``
    report (registers, shared memory, spills) is printed.
 2. kernel vs plain: K1 on CUDA tensors against ``group_decode_plain`` on CPU
@@ -162,23 +162,27 @@ Phases, each printed as one JSON line:
    pinned copy of the whole: the link bound, and the caller's buffer
    registered in place instead), the kernels' ptxas report; bound: the
    bytes at 3.35 TB/s.
-18. device_filters: X4 (``ops/device_filters.py``, ``csrc/device_filters.cu``
-   for x86 and BCJ2): the eight functions on the card against their plain
-   versions on CPU copies and the host's ``ops/filters.py`` on the batches
-   of tests/torch_filter_batches.py (salted, x86 edge and past-the-row
-   lanes, BCJ2 with truncated streams and lengths past the rows, and the
+18. device_filters: X4 (``ops/device_filters.py``; ``csrc/device_filters.cu``
+   for x86 and BCJ2, ``csrc/branch_filters.cu`` for the converters and
+   delta): the eight functions on the card against their plain versions on
+   CPU copies and the host's ``ops/filters.py`` on the batches of
+   tests/torch_filter_batches.py (salted, x86 edge and past-the-row lanes,
+   BCJ2 with truncated streams and lengths past the rows, and the
    adversarial batches of the segmented kernels: E8 every 3 bytes, sites
    around the kernel's span starts and in a row's last bytes, BCJ2 sites
-   after a converted 0F top), round trips; then one lane per SM of 1 MiB
-   of ``x86_like``: x86 encode and decode and BCJ2 decode of
-   ``bcj2_encode``'s streams, counted and timed, every row equal to the
-   plain version's on CPU copies of its lane (three worker processes), to
-   the host's encode and to the input, with the BCJ2 lanes' decoder steps;
-   then the x86 worst case, one lane per SM of 1 MiB with an E8 every 3
-   bytes (no sync point: every span runs from each possible entry state),
-   timed and equal to the host's encode; then the torch-op converters
-   (arm, armt, ppc, sparc, ia64) and delta (distance 1, both ways) timed
-   on the wide x86 batch beside the bytes bound of one read and one write.
+   after a converted 0F top; the converters also on the negative-valid
+   batch and on lanes whose every unit holds a site at each valid and ip
+   edge, delta at distances 1, 4, 255 and 257 and on rows of several of its
+   tiles), round trips; then one lane per SM of 1 MiB of ``x86_like``: x86
+   encode and decode, BCJ2 decode of ``bcj2_encode``'s streams, the five
+   converters (encode) and delta (distance 1, both ways), counted and timed,
+   every row equal to the plain version's on CPU copies of its lane (three
+   worker processes), x86's to the host's encode and to the input, with the
+   BCJ2 lanes' decoder steps; the plain converters and delta timed on the
+   card beside the kernels, and ``torch.cumsum`` beside delta decode; then
+   the x86 worst case, one lane per SM of 1 MiB with an E8 every 3 bytes
+   (no sync point: every span runs from each possible entry state), timed
+   and equal to the host's encode.
 19. one_call: ``lzma2_compress`` of the 128 MiB (1 MiB dictionary and
    chunk, every core) and ``lzma2_uncompress`` of it on the card (K1
    launched), ``compress``/``uncompress`` of 8 MiB at level 5 (read back by
@@ -212,7 +216,7 @@ design, and a chain bound, an estimate: the larger of its longest lane's ops
 at P1 ``lane``'s cost of a dependent shared-memory update and its longest
 chunk's bit calls at ``lane-notr``'s; X2 has the bytes bound of its work at
 the encoder's batch, timed on phase 12 and counted on phase 13; X3 and X4's
-two kernels have their bytes bounds, measured on phases 17 and 18, which
+eight kernels have their bytes bounds, measured on phases 17 and 18, which
 alone launch them, and
 X4's BCJ2 also a chain bound: its longest lane's range-decoder steps at
 ``lane-notr``'s cost of a dependent bit call).  Any failure exits
@@ -2024,40 +2028,39 @@ def launch_ms(fn, reps: int = 3) -> dict:
     return out
 
 
+# X4's converters and delta (csrc/branch_filters.cu) and the lines of the
+# JAX functions they replace in lzma_sdk_zliblike_tpu/ops/device_filters.py
+BRANCH = ("arm", "armt", "ppc", "sparc", "ia64")
+BRANCH_REPLACES = {"arm": 62, "armt": 120, "ppc": 81, "sparc": 99,
+                   "ia64": 165, "delta": 316}
+
+
 def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
     """Phase 18: X4 (``ops/device_filters.py``).  Each of the eight
     functions on the card against its plain version on CPU copies
-    (tolerance 0) and the host's ``ops/filters.py`` per lane, on the salted
-    batch of tests/torch_filter_batches.py at both directions, with encode
-    then decode round-tripping; delta at distances 1, 4 and 255; x86 also
-    on the batch's edge and past-the-row lanes and on the adversarial
-    batches of the segmented kernel (E8 every 3 bytes, sites around its
-    span starts, sites in a row's last bytes at every ``valid`` around its
-    end).  BCJ2 on the corpus lanes and the six edge lanes (truncated rc,
-    call, jump and main streams, a short out_size), on the past-the-row
-    lanes, on main streams that end on a site in their rows' last byte and
-    on the mixed batch (sites after a converted site whose rel32 ends in
-    0F, outputs cut inside a rel32, streams that run out): ``ok`` flag for
-    flag and ``out`` on every ok lane equal to the plain version's, the
-    corpus lanes equal to their originals.  Then the wide batches, one
-    lane per SM of 1 MiB of ``x86_like`` (8 distinct lanes, repeated): x86
-    encode and decode
-    and BCJ2 decode of ``bcj2_encode``'s streams, with the launch counts set
-    to 0 just before; every row equal to the plain version's on CPU copies
-    of its distinct lane (run in three worker processes while the rest of
-    the phase runs; the decode's input is the host's encode, which must
-    equal the kernel's), to the host's ``x86_convert`` and to the input;
-    each kernel timed by CUDA events on them (best of 3 after a warm-up),
-    bound by its bytes; BCJ2 also by a chain, the longest lane's
+    (tolerance 0), on the small batches of ``device_filters_small``.  Then
+    the wide batches, one lane per SM of 1 MiB of ``x86_like`` (8 distinct
+    lanes, repeated), with every launch count set to 0 just before: x86
+    encode and decode, BCJ2 decode of ``bcj2_encode``'s streams, the five
+    converters (encode) and delta (distance 1, both ways, and decode of
+    the encode); every row equal to the plain version's on CPU copies of
+    its distinct lane (run in three worker processes while the rest of the
+    phase runs; x86's decode input is the host's encode, which must equal
+    the kernel's), x86's to the host's ``x86_convert`` and to the input,
+    delta's round trip to the input; each kernel timed by CUDA events on
+    them (best of 3 after a warm-up), bound by its bytes (each input read
+    once, each output written once); the converters' and delta's plain
+    versions timed the same way on the card, each kernel's device time by
+    ``torch.profiler`` (``launch_ms``), delta decode also at distances 4 to
+    65,536 (fewer passes a tile, none from a tile on), and
+    ``torch.cumsum`` (uint8) beside delta decode; BCJ2 also bound by a
+    chain, the longest lane's
     range-decoder steps (``DF.bcj2_info`` of the main run) at
     ``ns_per_step``, each launch of a submit timed alone by
     ``torch.profiler`` (``launch_ms``).  Then the x86 worst case: one lane
     per SM of 1 MiB with an E8 every 3 bytes (8 distinct lanes), timed,
-    equal to the host's ``x86_convert`` on each.  Then the converters (arm,
-    armt, ppc, sparc, ia64: encode) and delta (distance 1, both ways), torch
-    ops, each timed on the wide x86 batch (CUDA events, best of 3 after a
-    warm-up) beside the bytes bound of one read and one write of it.
-    Returns the phase line and the two X4 entries of the kernels line."""
+    equal to the host's ``x86_convert`` on each.  Returns the phase line
+    and the eight X4 entries of the kernels line."""
     import multiprocessing
     import torch
     from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
@@ -2065,7 +2068,7 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
     from lzma_sdk_zliblike_tpu_torch.tools import best_ms
     cm, FB = corpus_module(), filter_batches()
     res = {"checks": [], "mismatches": []}
-    err = {"x86": 0, "bcj2": 0}
+    err = {k: 0 for k in (*BRANCH, "delta", "x86", "bcj2")}
     # the wide batches' inputs, and their plain versions started at once
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     distinct = [cm.x86_like(MIB, seed=60 + i) for i in range(8)]
@@ -2091,6 +2094,12 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
             "x86_dec": procs.submit(plain_job, "x86_convert_plain",
                                     [refs8, valid8, ip8], {"encoding": False}),
             "bcj2": procs.submit(plain_job, "bcj2_decode_plain", bcj2_8, {})}
+        for n in BRANCH:
+            jobs[n] = procs.submit(plain_job, f"{n}_convert_plain",
+                                   [rows8, valid8, ip8], {"encoding": True})
+        for tag, enc in (("delta_enc", True), ("delta_dec", False)):
+            jobs[tag] = procs.submit(plain_job, "delta_plain", [rows8, valid8],
+                                     {"dist": 1, "encoding": enc})
         small = device_filters_small(device, FB, res, err)
         # the wide batches on the card: the main path of X4
         rows = np.stack([rows8[i % 8] for i in range(sms)])
@@ -2100,14 +2109,26 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
         lane_of = torch.arange(sms, device=device) % 8
         bargs = [torch.from_numpy(a).to(device)[lane_of].contiguous()
                  for a in bcj2_8]
-        DF.launches["x86"] = DF.launches["bcj2"] = 0
+        for k in DF.launches:
+            DF.launches[k] = 0
         enc = DF.x86_convert_batch(wide, valid, ip, encoding=True)
         dec = DF.x86_convert_batch(enc, valid, ip, encoding=False)
         b_out, b_ok = DF.bcj2_decode_batch(*bargs)
+        conv = {n: getattr(DF, f"{n}_convert_batch")(wide, valid, ip,
+                                                      encoding=True)
+                for n in BRANCH}
+        conv["delta_enc"] = DF.delta_batch(wide, valid, dist=1, encoding=True)
+        conv["delta_dec"] = DF.delta_batch(wide, valid, dist=1,
+                                           encoding=False)
+        back = DF.delta_batch(conv["delta_enc"], valid, dist=1,
+                              encoding=False)
         launches = dict(DF.launches)
         b_info = DF.bcj2_info.cpu().numpy()
         enc_rows, dec_rows = enc.cpu().numpy(), dec.cpu().numpy()
         b_out, b_ok = b_out.cpu().numpy(), b_ok.cpu().numpy()
+        conv = {k: t.cpu().numpy() for k, t in conv.items()}
+        delta_roundtrip = bool(torch.equal(back, wide))
+        del back
         x86_ms = best_ms(lambda: DF.x86_convert_batch(wide, valid, ip,
                                                       encoding=True))
         bcj2_ms = best_ms(lambda: DF.bcj2_decode_batch(*bargs))
@@ -2115,19 +2136,46 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
             "x86": launch_ms(lambda: DF.x86_convert_batch(
                 wide, valid, ip, encoding=True)),
             "bcj2": launch_ms(lambda: DF.bcj2_decode_batch(*bargs))}
+        # the converters and delta: kernels, plain versions, the library
+        kern_ms, plain_ms = {}, {}
+        for n in BRANCH:
+            kern_ms[n] = best_ms(lambda f=getattr(DF, f"{n}_convert_batch"): f(
+                wide, valid, ip, encoding=True))
+            plain_ms[n] = best_ms(lambda f=getattr(DF, f"{n}_convert_plain"):
+                                  f(wide, valid, ip, encoding=True))
+        for tag, e in (("delta_enc", True), ("delta_dec", False)):
+            kern_ms[tag] = best_ms(lambda e=e: DF.delta_batch(
+                wide, valid, dist=1, encoding=e))
+            plain_ms[tag] = best_ms(lambda e=e: DF.delta_plain(
+                wide, valid, dist=1, encoding=e))
+        for n in BRANCH:
+            res["launch_ms"][n] = launch_ms(
+                lambda f=getattr(DF, f"{n}_convert_batch"): f(
+                    wide, valid, ip, encoding=True))
+        for tag, e in (("delta_enc", True), ("delta_dec", False)):
+            res["launch_ms"][tag] = launch_ms(lambda e=e: DF.delta_batch(
+                wide, valid, dist=1, encoding=e))
+        # delta decode at longer distances: fewer passes a tile (none from
+        # 16 KiB, a tile, on)
+        res["delta_dec_ms_by_dist"] = {
+            d: best_ms(lambda d=d: DF.delta_batch(wide, valid, dist=d,
+                                                  encoding=False))
+            for d in (4, 255, 4096, 16384, 65536)}
+        # one PyTorch call computing delta decode at distance 1 on fully
+        # valid lanes (the yardstick; the port never calls it)
+        lib_dec = torch.cumsum(wide.view(sms, MIB, 1), dim=1,
+                               dtype=torch.uint8).view(sms, MIB)
+        library_equal = bool(np.array_equal(lib_dec.cpu().numpy(),
+                                            conv["delta_dec"]))
+        del lib_dec
+        library_ms = best_ms(lambda: torch.cumsum(
+            wide.view(sms, MIB, 1), dim=1, dtype=torch.uint8))
         # the x86 worst case: no sync point past a lane's start
         worst = torch.from_numpy(worst8[np.arange(sms) % 8]).to(device)
         w_rows = DF.x86_convert_batch(worst, valid, ip,
                                       encoding=True).cpu().numpy()
         worst_ms = best_ms(lambda: DF.x86_convert_batch(worst, valid, ip,
                                                         encoding=True))
-        # the torch-op converters and delta on the same batch
-        conv = {n: best_ms(lambda f=getattr(DF, f"{n}_convert_batch"): f(
-            wide, valid, ip, encoding=True))
-            for n in ("arm", "armt", "ppc", "sparc", "ia64")}
-        for enc in (True, False):
-            conv[f"delta1_{'enc' if enc else 'dec'}"] = best_ms(
-                lambda e=enc: DF.delta_batch(wide, valid, dist=1, encoding=e))
         t = time.perf_counter()
         plain = {k: f.result() for k, f in jobs.items()}
         res["plain_wait_s"] = time.perf_counter() - t
@@ -2168,19 +2216,37 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
                            * 1e3)
     res["bcj2_wide"].update(ms=bcj2_ms, bound_ms=bcj2_bytes / HBM_BYTES_PER_S
                             * 1e3, bytes=bcj2_bytes)
-    res["converters"] = {
-        "lanes": sms, "lane_bytes": MIB, "ms": conv,
-        "bound_ms": 2 * rows.size / HBM_BYTES_PER_S * 1e3}
+    # the converters and delta on the wide batch: rows against the plain
+    # versions' of the distinct lanes, bytes bound of one read and one write
+    res["branch_wide"] = {"lanes": sms, "lane_bytes": MIB}
+    for k, got in conv.items():
+        p_rows, p_cpu_ms = plain[k]
+        name = "delta" if k.startswith("delta") else k
+        err[name] = max(err[name], max_err(got, p_rows[lanes]))
+        res["branch_wide"][k] = {
+            "ms": kern_ms[k], "plain_ms": plain_ms[k],
+            "plain_cpu_ms": p_cpu_ms,
+            "equal_plain": bool(np.array_equal(got, p_rows[lanes])),
+            "bound_ms": (rows.size + got.size) / HBM_BYTES_PER_S * 1e3}
+    bw = res["branch_wide"]
+    bw["delta_roundtrip"] = delta_roundtrip
+    bw["delta_dec"].update(library_ms=library_ms, library_equal=library_equal)
     res["launches"] = launches
-    same = {"x86": (small["x86"] and res["x86_wide"]["equal_plain"]),
-            "bcj2": (small["bcj2"] and res["bcj2_wide"]["equal_plain"])}
-    res["pass"] = (not res["mismatches"] and same["x86"] and same["bcj2"]
+    same = {k: small[k] for k in small}
+    same["x86"] = same["x86"] and res["x86_wide"]["equal_plain"]
+    same["bcj2"] = same["bcj2"] and res["bcj2_wide"]["equal_plain"]
+    for k in conv:
+        name = "delta" if k.startswith("delta") else k
+        same[name] = same[name] and bw[k]["equal_plain"]
+    res["matches_plain"] = same
+    res["pass"] = (not res["mismatches"] and all(same.values())
                    and res["x86_wide"]["equal_host"]
                    and res["x86_wide"]["roundtrip"]
                    and res["x86_worst"]["equal_host"]
                    and res["bcj2_wide"]["all_ok"]
                    and res["bcj2_wide"]["equal_input"]
-                   and launches["x86"] > 0 and launches["bcj2"] > 0)
+                   and delta_roundtrip and library_equal
+                   and all(v > 0 for v in launches.values()))
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
               "source": "lzma_sdk_zliblike_tpu_torch/csrc/device_filters.cu"}
     batch = f"the {sms} x 1 MiB lanes' 8 distinct ones"
@@ -2201,44 +2267,93 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
         "chain_bound_ms": res["bcj2_wide"]["chain_bound_ms"],
         "chain_ns_per_step": ns_per_step,
         "decoder_steps_max": steps_max}]
+    common["source"] = "lzma_sdk_zliblike_tpu_torch/csrc/branch_filters.cu"
+    plain_on = f"the {sms} x 1 MiB lanes on the card"
+    for n in (*BRANCH, "delta"):
+        k = "delta_dec" if n == "delta" else n
+        entry = {
+            "name": f"branch_filters {n} (X4)", **common,
+            "replaces": "lzma_sdk_zliblike_tpu/ops/device_filters.py:"
+                        f"{BRANCH_REPLACES[n]}",
+            "launches": launches[n], "matches_plain": same[n],
+            "max_abs_err": err[n], "ms": bw[k]["ms"],
+            "plain_ms": bw[k]["plain_ms"], "plain_batch": plain_on,
+            "plain_cpu_ms": bw[k]["plain_cpu_ms"],
+            "bound_ms": bw[k]["bound_ms"],
+            "kernel_device_ms": res["launch_ms"][k].get(
+                "word_kernel" if n in ("arm", "ppc", "sparc")
+                else f"{n}_kernel")}
+        if n == "delta":
+            entry.update(
+                direction="decode, distance 1", library_ms=library_ms,
+                library_call="torch.cumsum(dtype=torch.uint8)",
+                encode_ms=bw["delta_enc"]["ms"],
+                encode_plain_ms=bw["delta_enc"]["plain_ms"])
+        else:
+            entry["direction"] = "encode"
+        entries.append(entry)
     return res, entries
 
 
 def device_filters_small(device, FB, res, err) -> dict:
     """Phase 18's small batches (see ``device_filters``): appends to
     ``res``'s checks and mismatches, raises ``err`` to the largest
-    kernel-to-plain difference and returns whether x86 and BCJ2 each equal
-    their plain versions on every batch."""
+    kernel-to-plain difference of each function and returns whether each
+    equals its plain version on every batch.  The converters and x86 run
+    on the salted batch (and the host's converter per lane, a round trip at
+    16-aligned offsets); the five converters on the negative-valid batch
+    and the edge batches (the host's converter on the lanes of valid 0 to
+    L at ip 0); x86 on its edge, past-the-row and adversarial batches;
+    delta on the salted batch at distances 1, 4, 255 and 257 and on rows
+    of three tiles at those and at L - 1 and L + 5, round-tripping; BCJ2
+    on its corpus, edge, past-the-row, site-at-end and mixed lanes."""
     import torch
     from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
     from lzma_sdk_zliblike_tpu_torch.ops import filters as F
     host = {"x86": lambda b, i, encoding: F.x86_convert(b, i, encoding)[0]}
-    same = {"x86": True, "bcj2": True}
-    for k, name in enumerate(("arm", "armt", "ppc", "sparc", "ia64", "x86")):
+    same = {k: True for k in err}
+
+    def check(name, tag, data, valid, ip, encoding, host_lanes):
+        """The kernel against the plain version, and the host's converter
+        on ``host_lanes``; returns the kernel's rows."""
+        plain = DF.convert_batch(name, data, valid, ip, encoding=encoding,
+                                 device="cpu")
+        kern = DF.convert_batch(name, data, valid, ip, encoding=encoding,
+                                device=device)
+        err[name] = max(err[name], max_err(kern, plain))
+        same[name] = same[name] and np.array_equal(kern, plain)
+        fn = host.get(name, getattr(F, f"{name}_convert", None))
+        ok = np.array_equal(kern, plain)
+        for s in host_lanes:    # armt's rows drop an odd row's last byte
+            n = min(int(valid[s]), kern.shape[1])
+            ok = ok and kern[s, :n].tobytes() == fn(
+                data[s, :n].tobytes(), int(ip[s]), encoding=encoding)
+        res["checks"].append([tag, encoding, bool(ok)])
+        if not ok:
+            res["mismatches"].append([tag, encoding])
+        return kern
+
+    for k, name in enumerate((*BRANCH, "x86")):
         data, valid, ip = FB.salted_batch(k * 101 + 3)
-        fn = host.get(name, getattr(F, f"{name}_convert"))
         for encoding in (True, False):
-            plain = DF.convert_batch(name, data, valid, ip, encoding=encoding,
-                                     device="cpu")
-            kern = DF.convert_batch(name, data, valid, ip, encoding=encoding,
-                                    device=device)
-            ok = np.array_equal(kern, plain) and all(
-                kern[s, :n].tobytes() == fn(data[s, :n].tobytes(), int(ip[s]),
-                                             encoding=encoding)
-                for s, n in enumerate(valid.tolist()))
-            if name == "x86":
-                err["x86"] = max(err["x86"], max_err(kern, plain))
-                same["x86"] = same["x86"] and np.array_equal(kern, plain)
+            check(name, name, data, valid, ip, encoding, range(len(valid)))
             if encoding:      # round trip at 16-aligned offsets (ia64's)
                 ip16 = ip & ~np.uint32(15)
                 enc = DF.convert_batch(name, data, valid, ip16, encoding=True,
                                        device=device)
                 back = DF.convert_batch(name, enc, valid, ip16,
                                         encoding=False, device=device)
-                ok = ok and np.array_equal(back, data[:, :back.shape[1]])
-            res["checks"].append([name, encoding, bool(ok)])
-            if not ok:
-                res["mismatches"].append([name, encoding])
+                if not np.array_equal(back, data[:, :back.shape[1]]):
+                    res["mismatches"].append([name, "roundtrip"])
+    for name in BRANCH:
+        for encoding in (True, False):
+            check(name, f"{name}_negative_valid", *FB.negative_valid_batch(),
+                  encoding, ())
+            for L in FB.BRANCH_EDGE_LENGTHS[name]:
+                data, valid, ip = FB.branch_edge_batch(name, L)
+                check(name, f"{name}_edge_{L}", data, valid, ip, encoding,
+                      [s for s in range(len(valid))
+                       if 0 <= valid[s] <= L and ip[s] == 0])
     for tag, make in (("x86_edge", FB.x86_edge_batch),
                       ("x86_past_row", FB.x86_past_row_batch),
                       ("x86_every3", FB.x86_every3_batch),
@@ -2246,28 +2361,32 @@ def device_filters_small(device, FB, res, err) -> dict:
                       ("x86_span_edge", lambda: FB.x86_span_edge_batch(64)),
                       ("x86_tail", FB.x86_tail_batch)):
         for encoding in (True, False):
-            plain = DF.convert_batch("x86", *make(), encoding=encoding,
-                                     device="cpu")
-            kern = DF.convert_batch("x86", *make(), encoding=encoding,
-                                    device=device)
-            ok = np.array_equal(kern, plain)
-            err["x86"] = max(err["x86"], max_err(kern, plain))
-            same["x86"] = same["x86"] and ok
-            res["checks"].append([tag, encoding, bool(ok)])
-            if not ok:
-                res["mismatches"].append([tag, encoding])
-    data, valid, _ = FB.salted_batch(7)
-    for dist in (1, 4, 255):
+            check("x86", tag, *make(), encoding, ())
+    # delta: the salted batch, and rows of three tiles (16 KiB each)
+    L = 40001
+    for tag, (data, valid), dists in (
+            ("salted", FB.salted_batch(7)[:2], (1, 4, 255, 257)),
+            ("tiles", FB.delta_rows(L, seed=1), (1, 4, 255, 257, L - 1,
+                                                  L + 5))):
         t_d, t_v = torch.from_numpy(data), torch.from_numpy(valid)
-        enc = DF.delta_batch(t_d.to(device), t_v.to(device), dist=dist,
-                             encoding=True)
-        dec = DF.delta_batch(enc, t_v.to(device), dist=dist, encoding=False)
-        ok = (torch.equal(enc.cpu(), DF.delta_batch(t_d, t_v, dist=dist,
-                                                    encoding=True))
-              and torch.equal(dec.cpu(), t_d))
-        res["checks"].append(["delta", dist, bool(ok)])
-        if not ok:
-            res["mismatches"].append(["delta", dist])
+        for dist in dists:
+            ok = True
+            for encoding in (True, False):
+                plain = DF.delta_batch(t_d, t_v, dist=dist, encoding=encoding)
+                kern = DF.delta_batch(t_d.to(device), t_v.to(device),
+                                      dist=dist, encoding=encoding).cpu()
+                err["delta"] = max(err["delta"], max_err(kern.numpy(),
+                                                         plain.numpy()))
+                ok = ok and torch.equal(kern, plain)
+            same["delta"] = same["delta"] and ok
+            enc = DF.delta_batch(t_d.to(device), t_v.to(device), dist=dist,
+                                 encoding=True)
+            back = DF.delta_batch(enc, t_v.to(device), dist=dist,
+                                  encoding=False)
+            ok = ok and torch.equal(back.cpu(), t_d)
+            res["checks"].append([f"delta_{tag}", dist, bool(ok)])
+            if not ok:
+                res["mismatches"].append([f"delta_{tag}", dist])
     # BCJ2: the corpus and edge lanes, the past-the-row lanes, main
     # streams that fill their rows and end on a site, and the mixed batch
     datas = FB.bcj2_corpus()

@@ -4,9 +4,10 @@
 // fold schedule of checksum.cu (X3), of the pieces of device_filters.cu
 // (X4) and of the tile sort, merge rounds and slot step of match_find.cu
 // (X2): the same lzma_lane.cuh, lzma_enc_lane.cuh, probe_lane.cuh,
-// checksum_lane.cuh, filters_lane.cuh and match_find_lane.cuh, compiled by
-// g++, looping over lanes or elements on the host (and, for K1, K2, X2 and
-// X4, over the threads of a block).  The tests/test_torch_*.py
+// checksum_lane.cuh, filters_lane.cuh, branch_filters_lane.cuh (X4's
+// converters and delta, branch_filters.cu) and match_find_lane.cuh,
+// compiled by g++, looping over lanes or elements on the host (and, for K1,
+// K2, X2 and X4, over the threads of a block).  The tests/test_torch_*.py
 // files build it and hold it against the plain versions in ops/ and tools/;
 // the package never loads it.
 //
@@ -21,6 +22,7 @@
 #include <utility>
 #include <vector>
 
+#include "branch_filters_lane.cuh"
 #include "checksum_lane.cuh"
 #include "filters_lane.cuh"
 #include "lzma_enc_lane.cuh"
@@ -1103,6 +1105,100 @@ extern "C" int lzt_match_find_cpu(const void* data, const void* valid, int S, in
         }
       }
     }
+  }
+  return 0;
+}
+
+// X4's fixed-alignment filters (branch_filters.cu) over n_lanes rows of
+// `row` bytes of `in` into `out`, valid int32 and ip int64 per lane, at the
+// kernels' units: each lane's units run last to first, through the 16-byte
+// path where the kernels would take it (both buffers and `row` 16-aligned).
+// kind 0 ARM, 1 PPC, 2 SPARC (row % 4 == 0), 3 ARM Thumb (out rows of
+// row / 2 * 2 bytes), 4 IA64.
+extern "C" int lzt_branch_batch_cpu(int kind, const void* in, void* out, long long row,
+                                    const void* valid, const void* ip, int n_lanes,
+                                    int encoding) {
+  using namespace lzt::bra;
+  if (kind < 0 || kind > 4 || row < 0 || (kind < 3 && row % 4 != 0)) return 1;
+  const bool vec = (((uintptr_t)in | (uintptr_t)out | (uintptr_t)row) & 15) == 0;
+  const bool enc = encoding != 0;
+  const int64_t H = row / 2;
+  const int64_t units = kind == 3 ? (H + 7) / 8 : (row + kUnit - 1) / kUnit;
+  const int64_t out_row = kind == 3 ? 2 * H : row;
+  for (int64_t lane = 0; lane < n_lanes; ++lane) {
+    const uint8_t* li = (const uint8_t*)in + lane * row;
+    uint8_t* lo = (uint8_t*)out + lane * out_row;
+    const uint32_t v = (uint32_t)((const int32_t*)valid)[lane];
+    const uint32_t ipl = (uint32_t)((const int64_t*)ip)[lane];
+    for (int64_t u = units - 1; u >= 0; --u) {
+      if (kind == kArm) word_unit<kArm>(li, lo, row, u, v, ipl, enc, vec);
+      else if (kind == kPpc) word_unit<kPpc>(li, lo, row, u, v, ipl, enc, vec);
+      else if (kind == kSparc) word_unit<kSparc>(li, lo, row, u, v, ipl, enc, vec);
+      else if (kind == 3) armt_unit(li, lo, H, u, v, ipl, enc, vec);
+      else ia64_unit(li, lo, row, u, v, ipl, enc, vec);
+    }
+  }
+  return 0;
+}
+
+// X4's delta (branch_filters.cu) with `threads` threads a block and tiles
+// of `tile` bytes (a power of two, a multiple of 4 * threads): each lane's
+// tiles in order, each phase's threads last to first, the decode passes'
+// reads before their writes as the kernel's barriers order them.  The ring
+// starts as 0xA5 bytes, so a read of a word no tile wrote shows.
+extern "C" int lzt_delta_batch_cpu(const void* in, void* out, long long row, const void* valid,
+                                   long long dist, int n_lanes, int encoding, int threads,
+                                   int tile) {
+  using namespace lzt::bra;
+  if (dist < 1 || row < 0 || threads < 1 || tile < 4 || (tile & (tile - 1)) ||
+      tile % (4 * threads))
+    return 1;
+  const int W = tile / 4, per = W / threads;
+  const int64_t L = row, d = dist < row ? dist : row;
+  const bool al = (((uintptr_t)in | (uintptr_t)out | (uintptr_t)row) & 3) == 0;
+  std::vector<uint32_t> ring(2 * W), v(W);
+  for (int64_t lane = 0; lane < n_lanes; ++lane) {
+    const uint8_t* lin = (const uint8_t*)in + lane * L;
+    uint8_t* lout = (uint8_t*)out + lane * L;
+    const int64_t end = delta_end(((const int32_t*)valid)[lane], L);
+    std::fill(ring.begin(), ring.end(), 0xA5A5A5A5u);
+    int64_t base = 0;
+    for (; base < end; base += tile) {
+      const int n = L - base < tile ? (int)(L - base) : tile;
+      const int half = (int)((base / tile) & 1) * W;
+      for (int t = threads - 1; t >= 0; --t)
+        for (int k = 0; k < per; ++k)
+          delta_get(ring.data(), half, lin, base, n, t + k * threads, al, W);
+      if (encoding) {
+        for (int t = threads - 1; t >= 0; --t)
+          for (int k = 0; k < per; ++k) {
+            const int w = t + k * threads;
+            v[w] = delta_encode(ring.data(), half, lin, base, d, w, W);
+          }
+      } else {
+        for (int sh = (int)(d < tile ? d : tile); sh < tile; sh *= 2) {
+          for (int t = threads - 1; t >= 0; --t)
+            for (int k = 0; k < per; ++k) {
+              const int w = t + k * threads;
+              v[w] = delta_pass(ring.data(), half, sh, w, W);
+            }
+          for (int w = 0; w < W; ++w) ring_word(ring.data(), half, w, W) = v[w];
+        }
+        for (int t = threads - 1; t >= 0; --t)
+          for (int k = 0; k < per; ++k) {
+            const int w = t + k * threads;
+            v[w] = delta_carry(ring.data(), half, lout, base, d, w, W);
+            ring_word(ring.data(), half, w, W) = v[w];
+          }
+      }
+      for (int t = threads - 1; t >= 0; --t)
+        for (int k = 0; k < per; ++k) {
+          const int w = t + k * threads;
+          delta_put(lout, lin, base, n, end, w, v[w], al);
+        }
+    }
+    for (int t = threads - 1; t >= 0; --t)
+      delta_copy(lout, lin, base < L ? base : L, L, t, threads, al);
   }
   return 0;
 }

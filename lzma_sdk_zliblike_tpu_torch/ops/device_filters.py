@@ -6,23 +6,34 @@ per-lane ``valid`` length (int32) and stream offset ``ip`` (uint32 values
 in any integer dtype); lanes are independent streams, and bytes from
 ``valid`` on come back as they went in.
 
+On a CUDA tensor each function launches its hand-written kernel on the
+current stream, or raises; on a CPU tensor it runs its plain version, the
+same function in torch ops.  ``launches`` counts the kernel submits of
+each.
+
 * ``arm`` (``Bra.c:6-31``), ``armt`` (``Bra.c:33-67``), ``ppc``
   (``Bra.c:69-97``), ``sparc`` (``Bra.c:99-133``), ``ia64``
   (``BraIA64.c:14-67``) and ``delta`` (``Delta.c:20-62``) have a fixed
-  alignment, so each is a few vectorised torch operations over the batch,
-  on whatever device the tensors are on; uint32 arithmetic runs in int64
-  masked to 32 bits.  Delta decode is a prefix sum per residue class mod
-  ``dist``, taken mod 256.
+  alignment.  Their kernels (``csrc/branch_filters.cu``, pieces in
+  ``csrc/branch_filters_lane.cuh``) give a thread 16 bytes of a lane: four
+  words, eight Thumb halfwords (each a gather from its neighbours) or an
+  IA64 bundle; delta is a block per lane over 16 KiB tiles in shared
+  memory, decode a per-residue-class prefix sum by byte-vector passes with
+  the sum carried from tile to tile.  The plain versions
+  (``arm_convert_plain`` ... ``delta_plain``) are a few vectorised torch
+  operations over the batch; uint32 arithmetic runs in int64 masked to 32
+  bits.  The five converters compare positions with ``valid`` as uint32,
+  as the JAX functions do (a negative ``valid`` covers the whole row);
+  delta, like x86, compares it signed.
 * ``x86`` (``Bra86.c:11-85``) and BCJ2 decode (``Bcj2.c:28-127``) scan from
-  one E8/E9 (or Jcc) site to the next.  On a CUDA tensor the wrapper
-  launches the hand-written kernels (``csrc/device_filters.cu``, pieces in
-  ``csrc/filters_lane.cuh``: x86 a block per lane, a thread per stretch
-  between sync points; BCJ2 the sites listed by blocks, one thread's
-  range-decoder walk over them, the output placed by blocks) or raises; on
-  a CPU tensor it runs the plain version, ``x86_convert_plain`` /
-  ``bcj2_decode_plain``, a transcription of the JAX package's lockstep
-  candidate scan in torch ops.  ``launches`` counts the kernel submits of
-  each; ``bcj2_info`` holds the per-lane counts of the last BCJ2 submit.
+  one E8/E9 (or Jcc) site to the next.  Their kernels
+  (``csrc/device_filters.cu``, pieces in ``csrc/filters_lane.cuh``) run
+  x86 as a block per lane, a thread per stretch between sync points, and
+  BCJ2 as the sites listed by blocks, one thread's range-decoder walk over
+  them, the output placed by blocks; ``bcj2_info`` holds the per-lane
+  counts of the last BCJ2 submit.  The plain versions,
+  ``x86_convert_plain`` / ``bcj2_decode_plain``, transcribe the JAX
+  package's lockstep candidate scan in torch ops.
 
 ``convert_batch`` dispatches a named branch filter over numpy arrays.  No
 caller of the package routes its filters here yet: xz and 7z filter on the
@@ -38,7 +49,9 @@ import torch
 
 _M32 = 0xFFFFFFFF
 
-launches = {"x86": 0, "bcj2": 0}   # kernel submits on the card; set to 0
+# kernel submits on the card; set to 0 by callers that count a run
+launches = {"arm": 0, "armt": 0, "ppc": 0, "sparc": 0, "ia64": 0,
+            "delta": 0, "x86": 0, "bcj2": 0}
 # int32 [S, 4] on the card from the last BCJ2 submit: per lane the candidate
 # sites listed, the conversions, the range decoder's steps and ok
 bcj2_info = None
@@ -46,19 +59,27 @@ bcj2_info = None
 # lzt_x86_batch(in, out, row, valid, ip, n_lanes, encoding, stream) and
 # lzt_bcj2_batch(main, main_w, main_len, call, call_w, call_len, jump,
 # jump_w, jump_len, rc, rc_w, rc_len, out_size, out, out_cap, ok, cand,
-# words, words_w, info, info_w, n_lanes, stream) in csrc/device_filters.cu
+# words, words_w, info, info_w, n_lanes, stream) in csrc/device_filters.cu;
+# lzt_armt_batch and lzt_ia64_batch (in, out, row, valid, ip, n_lanes,
+# encoding, stream), lzt_word_filter_batch (kind, the same) and
+# lzt_delta_batch(in, out, row, valid, dist, n_lanes, encoding, stream) in
+# csrc/branch_filters.cu
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _X86_ARGTYPES = [_P, _P, _L, _P, _P, _I, _I, _P]
 _BCJ2_ARGTYPES = [_P, _I, _P] * 4 + [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I,
                                      _P]
+_DELTA_ARGTYPES = [_P, _P, _L, _P, _L, _I, _I, _P]
+_WORD_KIND = {"arm": 0, "ppc": 1, "sparc": 2}   # lzt_word_filter_batch
 
 
 def _lanes(data, valid, ip):
-    """(int64 copy of data, valid and ip as int64 column vectors)."""
+    """(int64 copy of data, valid and ip as uint32 values in int64 column
+    vectors): the converters compare with ``valid`` as uint32, as the JAX
+    functions do."""
     if data.dtype != torch.uint8 or data.dim() != 2:
         raise ValueError("data must be a 2-D uint8 tensor [S, L]")
     dev = data.device
-    v = torch.as_tensor(valid, device=dev).to(torch.int64)[:, None]
+    v = (torch.as_tensor(valid, device=dev).to(torch.int64) & _M32)[:, None]
     i = (torch.as_tensor(ip, device=dev).to(torch.int64) & _M32)[:, None]
     return data.to(torch.int64), v, i
 
@@ -77,8 +98,153 @@ def _unwords_be(w):
                         w & 0xFF], dim=-1).to(torch.uint8)
 
 
+def _check_lanes(data, valid, ip):
+    if not isinstance(data, torch.Tensor) or data.dtype != torch.uint8 \
+            or data.dim() != 2:
+        raise ValueError("data must be a 2-D uint8 tensor [S, L]")
+    S = data.shape[0]
+    for name, t in (("valid", valid), ("ip", ip)):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != (S,) \
+                or t.device != data.device:
+            raise ValueError(f"{name} must be a tensor of shape ({S},) on "
+                             f"{data.device}")
+
+
+def _int32_bits(t):
+    """int64 values in [0, 2^32) as the int32 of the same bits."""
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+
+def _launch(name: str, entry: str, data, valid, ip, encoding: bool,
+            out_w: int, *lead):
+    """One submit of ``csrc/branch_filters.cu``'s ``entry`` (a converter)
+    on the current stream: the output [S, out_w], allocated here; ``valid``
+    goes as int32 holding the uint32 bits the kernels compare, ``ip`` as
+    int64 (no copy where they come so)."""
+    from . import _build
+    S, L = data.shape
+    dev = data.device
+    out = torch.empty((S, out_w), dtype=torch.uint8, device=dev)
+    if S == 0 or out_w == 0:
+        return out
+    src = data.contiguous()
+    v = valid if valid.dtype == torch.int32 else \
+        _int32_bits(valid.to(torch.int64) & _M32)
+    i = ip.to(torch.int64)         # the kernels read its low 32 bits
+    v, i = v.contiguous(), i.contiguous()
+    fn = getattr(_build.library("branch_filters"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] * len(lead) + _X86_ARGTYPES
+    with torch.cuda.device(dev):
+        rc = fn(*lead, src.data_ptr(), out.data_ptr(), L, v.data_ptr(),
+                i.data_ptr(), S, 1 if encoding else 0,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} filter kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches[name] += 1
+    return out
+
+
+def _word_batch(name: str, data, valid, ip, encoding: bool):
+    _check_lanes(data, valid, ip)
+    if data.shape[1] % 4:
+        raise ValueError(f"{name}: the lanes' length must be a multiple of 4")
+    if data.device.type == "cpu":
+        return _PLAIN[name](data, valid, ip, encoding=encoding)
+    return _launch(name, "lzt_word_filter_batch", data, valid, ip, encoding,
+                   data.shape[1], _WORD_KIND[name])
+
+
 def arm_convert_batch(data, valid, ip, *, encoding: bool):
-    """ARM BL over [S, L] lanes (L % 4 == 0)."""
+    """ARM BL over [S, L] lanes (L % 4 == 0): a 4-aligned word whose byte 3
+    is 0xEB takes its 24-bit offset x 4 +- (ip + pos + 8).  On a CUDA tensor
+    the kernel (a thread per 16 bytes), on a CPU one ``arm_convert_plain``."""
+    return _word_batch("arm", data, valid, ip, encoding)
+
+
+def ppc_convert_batch(data, valid, ip, *, encoding: bool):
+    """PPC bl over [S, L] lanes (L % 4 == 0), big-endian words; kernel or
+    ``ppc_convert_plain`` as ``arm_convert_batch``."""
+    return _word_batch("ppc", data, valid, ip, encoding)
+
+
+def sparc_convert_batch(data, valid, ip, *, encoding: bool):
+    """SPARC call over [S, L] lanes (L % 4 == 0), big-endian words; kernel
+    or ``sparc_convert_plain`` as ``arm_convert_batch``."""
+    return _word_batch("sparc", data, valid, ip, encoding)
+
+
+def armt_convert_batch(data, valid, ip, *, encoding: bool):
+    """ARM Thumb BL pairs over [S, L] lanes: returns [S, L // 2 * 2].  On a
+    CUDA tensor the kernel (a thread per 8 output halfwords, each gathered
+    from the pair that starts or ends at it), on a CPU one
+    ``armt_convert_plain``."""
+    _check_lanes(data, valid, ip)
+    if data.device.type == "cpu":
+        return armt_convert_plain(data, valid, ip, encoding=encoding)
+    return _launch("armt", "lzt_armt_batch", data, valid, ip, encoding,
+                   data.shape[1] // 2 * 2)
+
+
+def ia64_convert_batch(data, valid, ip, *, encoding: bool):
+    """IA64 brl rewrite over [S, L] lanes, the tail ``L % 16`` copied.  On a
+    CUDA tensor the kernel (a thread per bundle), on a CPU one
+    ``ia64_convert_plain``."""
+    _check_lanes(data, valid, ip)
+    if data.device.type == "cpu":
+        return ia64_convert_plain(data, valid, ip, encoding=encoding)
+    return _launch("ia64", "lzt_ia64_batch", data, valid, ip, encoding,
+                   data.shape[1])
+
+
+def delta_batch(data, valid, *, dist: int, encoding: bool):
+    """Distance-``dist`` byte delta over [S, L] lanes (``dist >= 1``; one of
+    ``L`` or more leaves the rows as they are): encode ``out[i] = data[i] -
+    data[i - dist]``, decode ``out[i] = data[i] + out[i - dist]``, for i
+    below the lane's ``valid`` (compared signed).  On a CUDA tensor the
+    kernel (a block per lane over tiles in shared memory, decode's sums
+    carried from tile to tile), on a CPU one ``delta_plain``."""
+    if not isinstance(data, torch.Tensor) or data.dtype != torch.uint8 \
+            or data.dim() != 2:
+        raise ValueError("data must be a 2-D uint8 tensor [S, L]")
+    S, L = data.shape
+    if not isinstance(valid, torch.Tensor) or tuple(valid.shape) != (S,) \
+            or valid.device != data.device:
+        raise ValueError(f"valid must be a tensor of shape ({S},) on "
+                         f"{data.device}")
+    if int(dist) < 1:
+        raise ValueError(f"delta distance must be >= 1, not {dist}")
+    if data.device.type == "cpu":
+        return delta_plain(data, valid, dist=dist, encoding=encoding)
+    from . import _build
+    dev = data.device
+    out = torch.empty((S, L), dtype=torch.uint8, device=dev)
+    if S == 0 or L == 0:
+        return out
+    src = data.contiguous()
+    v = valid if valid.dtype == torch.int32 else \
+        valid.to(torch.int64).clamp(-1, L).to(torch.int32)
+    v = v.contiguous()
+    fn = _build.library("branch_filters").lzt_delta_batch
+    fn.restype = ctypes.c_int
+    fn.argtypes = _DELTA_ARGTYPES
+    with torch.cuda.device(dev):
+        rc = fn(src.data_ptr(), out.data_ptr(), L, v.data_ptr(),
+                min(int(dist), L), S, 1 if encoding else 0,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"delta kernel launch failed: CUDA error {rc}")
+    launches["delta"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the plain versions of the converters and delta
+# ---------------------------------------------------------------------------
+
+def arm_convert_plain(data, valid, ip, *, encoding: bool):
+    """``arm_convert_batch`` in torch ops."""
     S, L = data.shape
     d, v, i = _lanes(data, valid, ip)
     w = d.reshape(S, L // 4, 4)
@@ -91,8 +257,8 @@ def arm_convert_batch(data, valid, ip, *, encoding: bool):
     return torch.where(hit[..., None], new, w).to(torch.uint8).reshape(S, L)
 
 
-def ppc_convert_batch(data, valid, ip, *, encoding: bool):
-    """PPC bl over [S, L] lanes (L % 4 == 0)."""
+def ppc_convert_plain(data, valid, ip, *, encoding: bool):
+    """``ppc_convert_batch`` in torch ops."""
     S, L = data.shape
     d, v, i = _lanes(data, valid, ip)
     b = d.reshape(S, L // 4, 4)
@@ -105,8 +271,8 @@ def ppc_convert_batch(data, valid, ip, *, encoding: bool):
     return _unwords_be(torch.where(hit, neww, w)).reshape(S, L)
 
 
-def sparc_convert_batch(data, valid, ip, *, encoding: bool):
-    """SPARC call over [S, L] lanes (L % 4 == 0)."""
+def sparc_convert_plain(data, valid, ip, *, encoding: bool):
+    """``sparc_convert_batch`` in torch ops."""
     S, L = data.shape
     d, v, i = _lanes(data, valid, ip)
     b = d.reshape(S, L // 4, 4)
@@ -123,8 +289,8 @@ def sparc_convert_batch(data, valid, ip, *, encoding: bool):
     return _unwords_be(torch.where(hit, conv, w)).reshape(S, L)
 
 
-def armt_convert_batch(data, valid, ip, *, encoding: bool):
-    """ARM Thumb BL pairs over [S, L] lanes (Bra.c:33-67): a candidate
+def armt_convert_plain(data, valid, ip, *, encoding: bool):
+    """``armt_convert_batch`` in torch ops (Bra.c:33-67): a candidate
     halfword pair needs ``(b[2h+1] & 0xF8) == 0xF0`` and ``(b[2h+3] & 0xF8)
     == 0xF8``, which no byte meets at once, so neighbouring candidates never
     overlap and every one converts on its own.  Returns [S, L // 2 * 2]."""
@@ -135,7 +301,7 @@ def armt_convert_batch(data, valid, ip, *, encoding: bool):
     a0, a1 = hw[:, :, 0].clone(), hw[:, :, 1].clone()
     b0, b1 = a0[:, :-1], a1[:, :-1]          # halfword h
     b2, b3 = a0[:, 1:], a1[:, 1:]            # halfword h + 1
-    pos_in = torch.arange(H - 1, device=data.device) << 1
+    pos_in = torch.arange(max(H - 1, 0), device=data.device) << 1
     hit = (((b1 & 0xF8) == 0xF0) & ((b3 & 0xF8) == 0xF8)
            & (pos_in[None, :] + 4 <= v))
     src = (((b1 & 0x7) << 19) | (b0 << 11) | ((b3 & 0x7) << 8) | b2) << 1
@@ -153,8 +319,8 @@ _IA64_BR_TABLE = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
                   4, 4, 6, 6, 0, 0, 7, 7, 4, 4, 0, 0, 4, 4, 0, 0)
 
 
-def ia64_convert_batch(data, valid, ip, *, encoding: bool):
-    """IA64 brl rewrite over [S, L] lanes (BraIA64.c:14-67).  Bundles are
+def ia64_convert_plain(data, valid, ip, *, encoding: bool):
+    """``ia64_convert_batch`` in torch ops (BraIA64.c:14-67).  Bundles are
     stateless and the three 41-bit slots are bitwise disjoint, so bundles
     and slots convert in parallel; each slot's window is read as a low
     32-bit word and a high 16-bit one."""
@@ -195,9 +361,8 @@ def ia64_convert_batch(data, valid, ip, *, encoding: bool):
     return out
 
 
-def delta_batch(data, valid, *, dist: int, encoding: bool):
-    """Distance-``dist`` byte delta over [S, L] lanes: decode is
-    ``out[i] = data[i] + out[i - dist]``, a prefix sum per residue class
+def delta_plain(data, valid, *, dist: int, encoding: bool):
+    """``delta_batch`` in torch ops: decode a prefix sum per residue class
     (the batch reshaped to [S, ceil(L / dist), dist], summed along the
     middle axis mod 256); encode the shifted subtract."""
     S, L = data.shape
@@ -215,24 +380,16 @@ def delta_batch(data, valid, *, dist: int, encoding: bool):
     return torch.where(idx < v, out, data)
 
 
+_PLAIN = {"arm": arm_convert_plain, "ppc": ppc_convert_plain,
+          "sparc": sparc_convert_plain}
+
+
 # ---------------------------------------------------------------------------
 # x86 BCJ
 # ---------------------------------------------------------------------------
 
 _M2ALLOW = (1, 1, 1, 0, 1, 0, 0, 0)     # Bra86.c:15
 _M2BIT = (0, 1, 2, 2, 3, 3, 3, 3)       # Bra86.c:16
-
-
-def _check_lanes(data, valid, ip):
-    if not isinstance(data, torch.Tensor) or data.dtype != torch.uint8 \
-            or data.dim() != 2:
-        raise ValueError("data must be a 2-D uint8 tensor [S, L]")
-    S = data.shape[0]
-    for name, t in (("valid", valid), ("ip", ip)):
-        if not isinstance(t, torch.Tensor) or tuple(t.shape) != (S,) \
-                or t.device != data.device:
-            raise ValueError(f"{name} must be a tensor of shape ({S},) on "
-                             f"{data.device}")
 
 
 def x86_convert_batch(data, valid, ip, *, encoding: bool):
@@ -563,7 +720,7 @@ def convert_batch(name: str, data: np.ndarray, valid: np.ndarray,
                   device="cuda") -> np.ndarray:
     """A named branch filter over an [S, L] numpy batch (L a multiple of 4)
     on ``device``: ``"cuda"`` (the default) raises UnsupportedError with no
-    card, ``"cpu"`` runs the torch ops and plain versions on the CPU."""
+    card, ``"cpu"`` runs the plain versions on the CPU."""
     from ..api import check_device
     fn = _BATCHED[name]
     dev = check_device(device)

@@ -62,6 +62,21 @@ def test_branch_batch_matches_jax(name, encoding):
                                           encoding=encoding), (name, s)
 
 
+@pytest.mark.parametrize("name", ["arm", "armt", "ppc", "sparc", "ia64"])
+@pytest.mark.parametrize("encoding", [True, False])
+def test_negative_valid_matches_jax(name, encoding):
+    """The five converters compare positions with ``valid`` as uint32, as
+    the JAX functions do: lanes of valid -1 and -4096 convert their whole
+    rows, a lane of 2^31 - 1 its whole row too."""
+    data, valid, ip = FB.negative_valid_batch()
+    ref = JDF.convert_batch(name, data, valid, ip, encoding=encoding)
+    out = DF.convert_batch(name, data, valid, ip, encoding=encoding,
+                           device="cpu")
+    assert out.shape == ref.shape and np.array_equal(out, ref), name
+    for s in range(3):
+        assert not np.array_equal(out[s], data[s, :out.shape[1]]), s
+
+
 @pytest.mark.parametrize("encoding", [True, False])
 def test_x86_edge_lanes_match_jax(encoding):
     data, valid, ip = FB.x86_edge_batch()

@@ -2,14 +2,16 @@
 
 The harness compiles the kernels' own per-lane sources (``lzma_lane.cuh``
 for K1, ``lzma_enc_lane.cuh`` for K2, ``probe_lane.cuh`` for the probes P1
-and P2, ``checksum_lane.cuh`` for X3, ``filters_lane.cuh`` for X4,
+and P2, ``checksum_lane.cuh`` for X3, ``filters_lane.cuh`` and
+``branch_filters_lane.cuh`` for X4,
 ``match_find_lane.cuh`` for X2) for the host, so the tests can run the
 code the GPU runs.  It goes to ``build/torch_kernels_cpu/`` under a hash of
 its sources and is shared by the test files that load this module by path
 (a foreign package named ``tests`` may shadow this directory).
-``x86_batch`` and ``bcj2_batch`` call X4's two entry points on numpy
-arrays, at the kernels' block geometry unless told otherwise;
-``match_find_batch`` calls X2's.
+``x86_batch`` and ``bcj2_batch`` call X4's x86 and BCJ2 entry points on
+numpy arrays, at the kernels' block geometry unless told otherwise;
+``branch_batch`` and ``delta_batch`` call X4's fixed-alignment
+converters and delta; ``match_find_batch`` calls X2's.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "lzma_sdk_zliblike_tpu_torch", "csrc")
 SOURCES = ("cpu_harness.cc", "lzma_lane.cuh", "lzma_enc_lane.cuh",
            "probe_lane.cuh", "checksum_lane.cuh", "filters_lane.cuh",
-           "match_find_lane.cuh")
+           "match_find_lane.cuh", "branch_filters_lane.cuh")
 
 
 def build(csrc: str = CSRC,
@@ -97,6 +99,44 @@ def bcj2_batch(lib, streams, lens, out_size, threads=BCJ2_THREADS):
     assert fn(*args, osz.ctypes.data, out.ctypes.data, cap, ok.ctypes.data,
               S, info.ctypes.data, threads) == 0
     return out, ok != 0, info
+
+
+# X4's delta geometry in csrc/branch_filters.cu: threads of a block, tile
+# bytes
+DELTA_THREADS, DELTA_TILE = 512, 16384
+BRANCH_KIND = {"arm": 0, "ppc": 1, "sparc": 2, "armt": 3, "ia64": 4}
+
+
+def branch_batch(lib, name, data, valid, ip, encoding):
+    """``lzt_branch_batch_cpu`` over numpy lanes: the converted rows ([S, L
+    // 2 * 2] for armt).  ``out`` starts as 0x5A bytes, so a byte the
+    kernel misses shows."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.lzt_branch_batch_cpu
+    fn.restype, fn.argtypes = ctypes.c_int, [I, P, P, L, P, P, I, I]
+    d = np.ascontiguousarray(data, np.uint8)
+    S, W = d.shape
+    out = np.full((S, W // 2 * 2 if name == "armt" else W), 0x5A, np.uint8)
+    v = np.ascontiguousarray(valid, np.int32)
+    i = np.ascontiguousarray(ip).astype(np.int64)
+    assert fn(BRANCH_KIND[name], d.ctypes.data, out.ctypes.data, W,
+              v.ctypes.data, i.ctypes.data, S, int(encoding)) == 0
+    return out
+
+
+def delta_batch(lib, data, valid, dist, encoding, threads=DELTA_THREADS,
+                tile=DELTA_TILE):
+    """``lzt_delta_batch_cpu`` over numpy lanes at a block of ``threads``
+    and tiles of ``tile`` bytes: the [S, L] rows, from 0x5A bytes."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.lzt_delta_batch_cpu
+    fn.restype, fn.argtypes = ctypes.c_int, [P, P, L, P, L, I, I, I, I]
+    d = np.ascontiguousarray(data, np.uint8)
+    out = np.full_like(d, 0x5A)
+    v = np.ascontiguousarray(valid, np.int32)
+    assert fn(d.ctypes.data, out.ctypes.data, d.shape[1], v.ctypes.data,
+              int(dist), d.shape[0], int(encoding), threads, tile) == 0
+    return out
 
 
 # X2's geometry in csrc/match_find.cu: keys a sorted tile (kSortTile),

@@ -73,6 +73,89 @@ def salted_batch(seed, S=5, L=4096):
     return data, valid, ip
 
 
+# the lanes' valid lengths of the negative-valid batch: the five converters
+# compare with valid as uint32, so -1 and -4096 cover the whole row
+NEGATIVE_VALID = (-1, -4096, 2 ** 31 - 1, 8, 0)
+
+
+def negative_valid_batch():
+    """The salted batch of seed 3 with ``valid`` = ``NEGATIVE_VALID``."""
+    data, _, ip = salted_batch(3)
+    return data, np.array(NEGATIVE_VALID, np.int32), ip
+
+
+def _ia64_brl_bundles(row: np.ndarray) -> None:
+    """Every 16-byte bundle of ``row`` (in place) gets template ``(k + 23)
+    % 32`` (bundle k: every template in 32 bundles, a slot mask of 7 in the
+    32nd) and a brl opcode in all three slots: instruction bits 37-40 of a
+    slot 5, bits 9-11 0."""
+    for k in range(len(row) // 16):
+        b = int.from_bytes(row[16 * k:16 * k + 16].tobytes(), "little")
+        b = (b & ~0x1F) | ((k + 23) % 32)
+        for slot in range(3):
+            at = 5 + 41 * slot
+            b &= ~(0x7 << (at + 9)) & ~(0xF << (at + 37))
+            b |= 0x5 << (at + 37)
+        row[16 * k:16 * k + 16] = np.frombuffer(b.to_bytes(16, "little"),
+                                                np.uint8)
+
+
+# the edge batches' row lengths: 16-aligned, and rows that take the kernels'
+# byte path (not a multiple of 16; odd for Thumb; L % 16 of 1 and 15 for
+# IA64)
+BRANCH_EDGE_LENGTHS = {"arm": (512, 516), "ppc": (512, 516),
+                       "sparc": (512, 516), "armt": (512, 514, 513),
+                       "ia64": (512, 513, 527)}
+
+
+def branch_edge_batch(name: str, L: int):
+    """Lanes of ``L`` bytes whose every unit holds a site of converter
+    ``name`` (arm, armt, ppc, sparc or ia64): ARM words ending in 0xEB,
+    PPC ``bl`` words, SPARC calls of both signs, Thumb pairs at 4-aligned
+    halfwords (at 2 mod 4 in odd lanes), IA64 bundles of every template
+    with a brl in each slot.  Lanes 0-6 have ``valid`` -1, 0, 3, 4, 5, L and
+    L + 100 at ip 0; lanes 7 and 8 valid L at ip 2^32 - 4 and 2^32 - 16,
+    where positions wrap.  Returns (data [9, L] uint8, valid int32, ip
+    uint32)."""
+    rng = np.random.default_rng(sum(map(ord, name)) * 1000 + L)
+    data = rng.integers(0, 256, (9, L), dtype=np.uint8)
+    W = L // 4 * 4
+    words = data[:, :W].reshape(9, W // 4, 4)     # a view: writes land in data
+    if name == "arm":
+        words[..., 3] = 0xEB
+    elif name == "ppc":
+        words[..., 0] = 0x48 | (words[..., 0] & 3)
+        words[..., 3] = (words[..., 3] & 0xFC) | 1
+    elif name == "sparc":
+        neg = rng.integers(0, 2, words.shape[:2]).astype(bool)
+        words[..., 0] = np.where(neg, 0x7F, 0x40)
+        words[..., 1] = np.where(neg, words[..., 1] | 0xC0,
+                                 words[..., 1] & 0x3F)
+    elif name == "armt":
+        for s in range(9):
+            at = 2 * (s % 2)
+            data[s, at + 1:L:4] = 0xF0 | (data[s, at + 1:L:4] & 7)
+            data[s, at + 3:L:4] = 0xF8 | (data[s, at + 3:L:4] & 7)
+    elif name == "ia64":
+        for s in range(9):
+            _ia64_brl_bundles(data[s])
+    else:
+        raise ValueError(name)
+    valid = np.array([-1, 0, 3, 4, 5, L, L + 100, L, L], np.int32)
+    ip = np.array([0] * 7 + [2 ** 32 - 4, 2 ** 32 - 16], np.uint32)
+    return data, valid, ip
+
+
+def delta_rows(L: int, seed: int):
+    """Seven lanes of ``L`` random bytes for delta, with ``valid`` L, L - 7,
+    13, 0, -1, L + 100 and L // 2 + 3 (inside a middle tile of long rows).
+    Returns (data [7, L] uint8, valid int32)."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (7, L), dtype=np.uint8)
+    valid = np.array([L, L - 7, 13, 0, -1, L + 100, L // 2 + 3], np.int32)
+    return data, valid
+
+
 def x86_edge_batch():
     """x86 lanes the salted batch misses: valid 0-6 around the 5-byte
     minimum, a dense E8/E9 run with 00/FF operands (the Bra86.c:58-67
