@@ -172,14 +172,20 @@ Phases, each printed as one JSON line:
    around the kernel's span starts and in a row's last bytes, BCJ2 sites
    after a converted 0F top; the converters also on the negative-valid
    batch and on lanes whose every unit holds a site at each valid and ip
-   edge, delta at distances 1, 4, 255 and 257 and on rows of several of its
-   tiles), round trips; then one lane per SM of 1 MiB of ``x86_like``: x86
-   encode and decode, BCJ2 decode of ``bcj2_encode``'s streams, the five
-   converters (encode) and delta (distance 1, both ways), counted and timed,
-   every row equal to the plain version's on CPU copies of its lane (three
-   worker processes), x86's to the host's encode and to the input, with the
-   BCJ2 lanes' decoder steps; the plain converters and delta timed on the
-   card beside the kernels, and ``torch.cumsum`` beside delta decode; then
+   edge, delta on the salted batch and on rows of several of its segments,
+   odd and 16-aligned, at distances 1, 2, 3, 4, 16, 255, 256, 257, 4,096,
+   L - 1 and L + 5), round trips; then one lane per SM of 1 MiB of
+   ``x86_like``: x86 encode and decode, BCJ2 decode of ``bcj2_encode``'s
+   streams, the five converters (encode) and delta (distance 1, both ways),
+   counted and timed, every row equal to the plain version's on CPU copies
+   of its lane (three worker processes), x86's to the host's encode and to
+   the input, with the BCJ2 lanes' decoder steps; the plain converters and
+   delta timed on the card beside the kernels, delta both ways at
+   distances 1 to 65,536 on the wide lanes, each distance's rows equal to
+   the plain version's on the card before it is timed, every launch's
+   device time by ``torch.profiler``
+   (a kernel whose events did not come back named in
+   ``launch_ms_missing``), and ``torch.cumsum`` beside delta decode; then
    the x86 worst case, one lane per SM of 1 MiB with an E8 every 3 bytes
    (no sync point: every span runs from each possible entry state), timed
    and equal to the host's encode.
@@ -1938,7 +1944,8 @@ def checksum_device(data: bytes, device) -> tuple[dict, dict]:
                                   width, 0))
         res[f"crc{width}_device_ms"] = launch_ms(
             lambda: C.fold_launch(C.crc_tiles(buf, width, 0, states), n,
-                                  width, 0))
+                                  width, 0),
+            expect=["crc_tiles_kernel", "crc_fold_kernel"])
     del buf, states
     res["parts"] = crc_parts(data, device, C)
     res["bound_ms"] = n / HBM_BYTES_PER_S * 1e3
@@ -2003,28 +2010,50 @@ def max_err(a, b) -> int:
     return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
 
 
-def launch_ms(fn, reps: int = 3) -> dict:
+def launch_ms(fn, reps: int = 3, expect=()) -> dict:
     """ms of device time per call of each CUDA kernel that ``fn()`` launches,
     by ``torch.profiler`` over ``reps`` calls after a warm-up, keyed by the
     kernel's name (its last scope, up to its parameter or template
-    list, without a return type)."""
+    list, without a return type).  Once another process has used the card
+    (phases 14-16 run two ranks on it), a profiler session here can lose
+    some launches' device events (its first launch or two: each session
+    opens with three throwaway ``torch.cuda._sleep`` launches,
+    ``spin_kernel``, left out) or count some twice.  A kernel of
+    ``expect``, which every call launches once, must have ``reps`` events:
+    a session where one has not, or where no kernel has any, is profiled
+    again, four times at most; a kernel still short is listed under
+    ``"missing"`` (no event) or ``"inexact"`` (its time then the mean of
+    its events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0)
-        key = e.key.replace("(anonymous namespace)::", "")
-        name = re.split(r"[(<]", key)[0].split("::")[-1].split()
-        name = name[-1] if name else ""
-        if us and name:
-            out[name] = out.get(name, 0.0) + us * 1e-3 / reps
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None) or getattr(
+                e, "cuda_time_total", 0)
+            key = e.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[(<]", key)[0].split("::")[-1].split()
+            name = name[-1] if name else ""
+            if us and name and name != "spin_kernel":
+                total[name] = total.get(name, 0.0) + us * 1e-3
+                count[name] = count.get(name, 0) + e.count
+        out = {n: t / (count[n] if n in expect else reps)
+               for n, t in total.items()}
+        short = [n for n in expect if count.get(n, 0) != reps]
+        if out and not short:
+            return out
+    if [n for n in short if n not in out]:
+        out["missing"] = [n for n in short if n not in out]
+    if [n for n in short if n in out]:
+        out["inexact"] = [n for n in short if n in out]
     return out
 
 
@@ -2033,6 +2062,25 @@ def launch_ms(fn, reps: int = 3) -> dict:
 BRANCH = ("arm", "armt", "ppc", "sparc", "ia64")
 BRANCH_REPLACES = {"arm": 62, "armt": 120, "ppc": 81, "sparc": 99,
                    "ia64": 165, "delta": 316}
+KERNEL_NAME = {"arm": "word_kernel", "ppc": "word_kernel",
+               "sparc": "word_kernel", "armt": "armt_kernel",
+               "ia64": "ia64_kernel", "delta": "delta_reduce_kernel"}
+# delta's distances checked and timed on the wide batch: the usual 1, 2
+# and 4, 3 (RGB), the formats' 16, 255 and 256, and the column walk's 257
+# and 1,001 (a byte column a thread) and 4,096 to 65,536 (words)
+DELTA_DISTS = (1, 2, 3, 4, 16, 255, 256, 257, 1001, 4096, 16384, 65536)
+
+
+def delta_dec_kernels(dist: int) -> list:
+    """The kernels of one delta decode at ``dist`` (csrc/branch_filters.cu:
+    three launches up to 256, byte columns' through shared memory; the
+    column walk above)."""
+    if dist > 256:
+        return ["delta_walk_kernel"]
+    if dist > 2 and dist % 4:
+        return ["delta_reduce_bytes_kernel", "delta_carry_kernel",
+                "delta_scan_bytes_kernel"]
+    return ["delta_reduce_kernel", "delta_carry_kernel", "delta_scan_kernel"]
 
 
 def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
@@ -2051,8 +2099,12 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
     them (best of 3 after a warm-up), bound by its bytes (each input read
     once, each output written once); the converters' and delta's plain
     versions timed the same way on the card, each kernel's device time by
-    ``torch.profiler`` (``launch_ms``), delta decode also at distances 4 to
-    65,536 (fewer passes a tile, none from a tile on), and
+    ``torch.profiler`` (``launch_ms``; a kernel with no events named in
+    ``launch_ms_missing``, one with too few or too many in
+    ``launch_ms_inexact``), delta both ways at ``DELTA_DISTS``
+    (``delta_by_dist``: each distance's rows against the plain version's
+    on the card, then timed; decode's three launches up to 256, its
+    column walk above), and
     ``torch.cumsum`` (uint8) beside delta decode; BCJ2 also bound by a
     chain, the longest lane's
     range-decoder steps (``DF.bcj2_info`` of the main run) at
@@ -2134,8 +2186,11 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
         bcj2_ms = best_ms(lambda: DF.bcj2_decode_batch(*bargs))
         res["launch_ms"] = {
             "x86": launch_ms(lambda: DF.x86_convert_batch(
-                wide, valid, ip, encoding=True)),
-            "bcj2": launch_ms(lambda: DF.bcj2_decode_batch(*bargs))}
+                wide, valid, ip, encoding=True), expect=["x86_kernel"]),
+            "bcj2": launch_ms(lambda: DF.bcj2_decode_batch(*bargs),
+                              expect=[f"bcj2_{k}_kernel" for k in (
+                                  "count", "list", "words", "walk",
+                                  "place")])}
         # the converters and delta: kernels, plain versions, the library
         kern_ms, plain_ms = {}, {}
         for n in BRANCH:
@@ -2151,16 +2206,29 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
         for n in BRANCH:
             res["launch_ms"][n] = launch_ms(
                 lambda f=getattr(DF, f"{n}_convert_batch"): f(
-                    wide, valid, ip, encoding=True))
-        for tag, e in (("delta_enc", True), ("delta_dec", False)):
-            res["launch_ms"][tag] = launch_ms(lambda e=e: DF.delta_batch(
-                wide, valid, dist=1, encoding=e))
-        # delta decode at longer distances: fewer passes a tile (none from
-        # 16 KiB, a tile, on)
-        res["delta_dec_ms_by_dist"] = {
-            d: best_ms(lambda d=d: DF.delta_batch(wide, valid, dist=d,
-                                                  encoding=False))
-            for d in (4, 255, 4096, 16384, 65536)}
+                    wide, valid, ip, encoding=True),
+                expect=[KERNEL_NAME[n]])
+        # delta by distance, both ways: rows against the plain version's on
+        # the card, then the wrapper by CUDA events and each launch's
+        # device time (decode: reduce, carry and scan at dist <= 256, the
+        # column walk above)
+        by = delta_by_dist(DF, wide, valid)
+        res["delta_enc_ms_by_dist"] = by["enc_ms"]
+        res["delta_dec_ms_by_dist"] = by["dec_ms"]
+        res["mismatches"] += by["mismatches"]
+        err["delta"] = max(err["delta"], by["max_abs_err"])
+        for k, v in by["launch_ms"].items():
+            res["launch_ms"][f"delta_{k}"] = v
+        res["launch_ms"]["delta_enc"] = res["launch_ms"].get("delta_enc_1",
+                                                             {})
+        res["launch_ms"]["delta_dec"] = res["launch_ms"].get("delta_dec_1",
+                                                             {})
+        res["launch_ms_missing"] = {
+            k: v["missing"] for k, v in res["launch_ms"].items()
+            if "missing" in v}
+        res["launch_ms_inexact"] = {
+            k: v["inexact"] for k, v in res["launch_ms"].items()
+            if "inexact" in v}
         # one PyTorch call computing delta decode at distance 1 on fully
         # valid lanes (the yardstick; the port never calls it)
         lib_dec = torch.cumsum(wide.view(sms, MIB, 1), dim=1,
@@ -2232,6 +2300,8 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
     bw["delta_roundtrip"] = delta_roundtrip
     bw["delta_dec"].update(library_ms=library_ms, library_equal=library_equal)
     res["launches"] = launches
+    res["launch_ms_all_kept"] = not (res["launch_ms_missing"]
+                                     or res["launch_ms_inexact"])
     same = {k: small[k] for k in small}
     same["x86"] = same["x86"] and res["x86_wide"]["equal_plain"]
     same["bcj2"] = same["bcj2"] and res["bcj2_wide"]["equal_plain"]
@@ -2280,15 +2350,27 @@ def device_filters(device, ns_per_step: float) -> tuple[dict, list]:
             "plain_ms": bw[k]["plain_ms"], "plain_batch": plain_on,
             "plain_cpu_ms": bw[k]["plain_cpu_ms"],
             "bound_ms": bw[k]["bound_ms"],
-            "kernel_device_ms": res["launch_ms"][k].get(
-                "word_kernel" if n in ("arm", "ppc", "sparc")
-                else f"{n}_kernel")}
+            "kernel_device_ms": res["launch_ms"][k].get(KERNEL_NAME[n])}
         if n == "delta":
+            # a device time only where every launch had one event a call
+            dec, enc = res["launch_ms"]["delta_dec"], res["launch_ms"][
+                "delta_enc"]
+            dec_ok = dec and not (dec.get("missing") or dec.get("inexact"))
+            enc_ok = enc and not (enc.get("missing") or enc.get("inexact"))
             entry.update(
                 direction="decode, distance 1", library_ms=library_ms,
                 library_call="torch.cumsum(dtype=torch.uint8)",
+                kernel_device_ms=sum(dec[x] for x in delta_dec_kernels(1))
+                if dec_ok else None,
+                launch_device_ms={x: dec.get(x) for x in
+                                  delta_dec_kernels(1)},
+                design_floor_ms=1.5 * bw[k]["bound_ms"],
                 encode_ms=bw["delta_enc"]["ms"],
-                encode_plain_ms=bw["delta_enc"]["plain_ms"])
+                encode_kernel_device_ms=enc["delta_encode_kernel"]
+                if enc_ok else None,
+                encode_plain_ms=bw["delta_enc"]["plain_ms"],
+                dec_ms_by_dist=res["delta_dec_ms_by_dist"],
+                enc_ms_by_dist=res["delta_enc_ms_by_dist"])
         else:
             entry["direction"] = "encode"
         entries.append(entry)
@@ -2305,7 +2387,8 @@ def device_filters_small(device, FB, res, err) -> dict:
     and the edge batches (the host's converter on the lanes of valid 0 to
     L at ip 0); x86 on its edge, past-the-row and adversarial batches;
     delta on the salted batch at distances 1, 4, 255 and 257 and on rows
-    of three tiles at those and at L - 1 and L + 5, round-tripping; BCJ2
+    of 40,001 and 49,152 bytes (several segments) at 1, 2, 3, 4, 16, 255,
+    256, 257, 4,096, L - 1 and L + 5, round-tripping; BCJ2
     on its corpus, edge, past-the-row, site-at-end and mixed lanes."""
     import torch
     from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
@@ -2362,12 +2445,13 @@ def device_filters_small(device, FB, res, err) -> dict:
                       ("x86_tail", FB.x86_tail_batch)):
         for encoding in (True, False):
             check("x86", tag, *make(), encoding, ())
-    # delta: the salted batch, and rows of three tiles (16 KiB each)
-    L = 40001
-    for tag, (data, valid), dists in (
-            ("salted", FB.salted_batch(7)[:2], (1, 4, 255, 257)),
-            ("tiles", FB.delta_rows(L, seed=1), (1, 4, 255, 257, L - 1,
-                                                  L + 5))):
+    # delta: the salted batch, and rows that cross several segments (16 KiB
+    # or just under), at odd and 16-aligned lengths
+    cases = [("salted", FB.salted_batch(7)[:2], (1, 4, 255, 257))]
+    for L in (40001, 49152):
+        cases.append((f"segments_{L}", FB.delta_rows(L, seed=1),
+                      (1, 2, 3, 4, 16, 255, 256, 257, 4096, L - 1, L + 5)))
+    for tag, (data, valid), dists in cases:
         t_d, t_v = torch.from_numpy(data), torch.from_numpy(valid)
         for dist in dists:
             ok = True
@@ -2417,6 +2501,70 @@ def device_filters_small(device, FB, res, err) -> dict:
         if not ok:
             res["mismatches"].append(["bcj2", tag])
     return same
+
+
+def delta_by_dist(DF, wide, valid, kernel=None) -> dict:
+    """Delta both ways at each of ``DELTA_DISTS`` on the [S, L] lanes
+    ``wide`` through ``DF.delta_batch``: its rows against
+    ``DF.delta_plain``'s on the card (tolerance 0), then, for a distance
+    whose rows matched, the wrapper by CUDA events (best of 3) and each
+    launch's device time (``launch_ms``), expecting ``kernel`` in every
+    call where it is given, else this tree's kernels
+    (``delta_encode_kernel``, ``delta_dec_kernels(dist)``).  A distance
+    that did not match is listed in ``mismatches`` and not timed."""
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.tools import best_ms
+    res = {"enc_ms": {}, "dec_ms": {}, "launch_ms": {}, "max_abs_err": 0,
+           "mismatches": []}
+    for d in DELTA_DISTS:
+        for tag, e in (("enc", True), ("dec", False)):
+            def fn(d=d, e=e):
+                return DF.delta_batch(wide, valid, dist=d, encoding=e)
+            got, ref = fn(), DF.delta_plain(wide, valid, dist=d, encoding=e)
+            if not torch.equal(got, ref):
+                res["max_abs_err"] = max(res["max_abs_err"], int(
+                    (got.to(torch.int16) - ref.to(torch.int16)).abs().max()))
+                res["mismatches"].append([f"delta_{tag}", d])
+                continue
+            del got, ref
+            expect = [kernel] if kernel else (
+                ["delta_encode_kernel"] if e else delta_dec_kernels(d))
+            res[f"{tag}_ms"][d] = best_ms(fn)
+            res["launch_ms"][f"{tag}_{d}"] = launch_ms(fn, expect=expect)
+    return res
+
+
+def delta_times(device, kernel=None) -> dict:
+    """Delta alone on phase 18's wide batch (132 lanes of 1 MiB of
+    ``x86_like``, 8 distinct lanes repeated), through whichever
+    ``lzma_sdk_zliblike_tpu_torch`` is first on ``sys.path`` (any tree whose
+    ``delta_batch`` and ``delta_plain`` take these arguments):
+    ``delta_by_dist``, passing when every row matched and every expected
+    kernel had one event a call.  ``kernel`` names another tree's one
+    delta kernel (``delta_kernel`` before the three-launch decode).  To
+    time another checkout ``P`` against this one in turns, each in a fresh
+    process on one card, from this one's root::
+
+        for t in P . . P; do python3 -c "import json, sys, torch
+        import chip_smoke as C; sys.path.insert(0, '$t')
+        k = None if '$t' == '.' else 'delta_kernel'
+        print(json.dumps(C.delta_times(torch.device('cuda', 0), k)))"; done
+    """
+    import torch
+    from lzma_sdk_zliblike_tpu_torch.ops import device_filters as DF
+    cm = corpus_module()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows8 = np.stack([np.frombuffer(cm.x86_like(MIB, seed=60 + i), np.uint8)
+                      for i in range(8)])
+    wide = torch.from_numpy(rows8[np.arange(sms) % 8]).to(device)
+    valid = torch.full((sms,), MIB, dtype=torch.int32, device=device)
+    res = {"package": os.path.dirname(os.path.dirname(DF.__file__)),
+           "lanes": sms, **delta_by_dist(DF, wide, valid, kernel)}
+    res["short"] = {k: v.get("missing", []) + v.get("inexact", [])
+                    for k, v in res["launch_ms"].items()
+                    if "missing" in v or "inexact" in v}
+    res["pass"] = not (res["mismatches"] or res["short"])
+    return res
 
 
 def one_call(data: bytes, device) -> dict:

@@ -19,16 +19,51 @@
 // blocks.  Thumb's pairs straddle units, so a thread also reads the
 // halfword on either side of its own (from L1: its neighbours loaded them)
 // and each output halfword is a gather, which leaves every byte to one
-// thread.  Delta encode is a gather too.  Delta decode is a prefix sum per
-// residue class mod `dist`, so besides its bytes it is bound by a chain:
-// the sum carried from one part of a lane to the next.  A block owns a lane
-// and walks it in 16 KiB tiles staged in shared memory (a ring of two, so
-// the tile before stays readable): log2(16 KiB / dist) passes of byte-
-// vector adds (four classes a word) scan a tile in place, each byte then
-// adds its class's last output before the tile, and the tile goes out.
-// The chain is one tile step per 16 KiB of a lane, so a lane of 1 MiB is
-// 64 steps; lanes run side by side, one block each.  Encode takes the same
-// tiles with no passes.  Bytes from a lane's `valid` on are copied.
+// thread.
+//
+// Delta encode is a gather with no carry, on the same 2-D grid: a thread
+// loads its 16 bytes and the 16 bytes `dist` before them (one unaligned
+// window funnelled out of two aligned 16-byte loads, served by L1/L2) and
+// subtracts them as byte vectors.  Delta decode is a prefix sum per residue
+// class mod `dist`; besides its bytes it is bound by the chain that
+// carries each class's sum along the lane.  The chain is cut into
+// launches, so no block ever waits on another:
+//   1. reduce: a block of 256 threads per segment of a lane, a segment
+//      being whole rows of `dist` bytes, 16 KiB or just under (16,320 at
+//      dist 3 or 255), so it starts at class 0.  Each column's total over
+//      the segment goes to a scratch of [lanes, segments, dist rounded up
+//      to 4] bytes (2.2 MB for 132 lanes of 1 MiB at dist 256).
+//   2. carry: a thread per (lane, scratch word) turns its lane's totals
+//      into exclusive prefixes along the segments, in place.
+//   3. scan: the same blocks total their chunks again, scan the chunk
+//      totals again, add the segment's carry and write the sums.
+// So decode reads the batch twice and writes it once: its floor is 1.5 x
+// the bytes bound.  Within a segment a thread takes `rk` rows of one
+// column:
+//   * dist 1, 2 and multiples of 4 (words of four classes): 16 words
+//     straight from the row into registers, column-fastest, so a warp
+//     reads a row's consecutive words; at dist 1, 2 and 4 a row is one
+//     word and a thread's 64 bytes are consecutive (four 16-byte loads and
+//     stores).  Dist 1 and 2 take a word's prefix sums as dp4a dot
+//     products of its bytes with 0/1 masks and pack them by byte_perm,
+//     about 7 integer operations a word (byte-vector adds would take 40);
+//     multiples of 4 add words as byte vectors.  The chunk totals are
+//     scanned by warp shuffles where a row is one word, else by
+//     Hillis-Steele steps over a 256-word array in shared memory.
+//   * other dists (byte columns): the segment is staged in shared memory
+//     by 16-byte loads into chunks of 64 rows, each followed by 4 bytes of
+//     padding, and threads take chunks chunk-fastest, so a warp's 32 byte
+//     reads fall in 32 banks; it goes back out by 16-byte stores.  Read
+//     straight from the row instead, a warp's byte loads at dist 3 would
+//     scatter over a dozen sectors each.
+// The work a byte is the same at every dist up to 256.  ptxas keeps every
+// decode kernel at 64 registers or fewer with no spills, so four blocks
+// or more of 256 threads share an SM.  Distances above 256 (never sent by
+// a container: the formats allow 1-256) walk their columns instead, in one
+// launch: a thread per column (a word where dist % 4 == 0 and the rows are
+// 4-aligned, else a byte) down every row, eight rows loaded before they
+// are summed.  Every path writes bytes from a lane's `valid` on as they
+// went in.
 //
 // Built by ops/_build.py with nvcc for sm_90a into a shared library with a
 // plain C interface; ops/device_filters.py calls lzt_word_filter_batch,
@@ -45,10 +80,9 @@ namespace {
 
 constexpr int kThreads = 256;          // converter threads a block (a unit each)
 constexpr int kMaxGridY = 65535;       // lanes a grid spans; more loop
-constexpr int kDeltaThreads = 512;     // threads of a delta block (a lane)
-constexpr int kDeltaTile = 16384;      // bytes of a delta tile
-constexpr int kDeltaWords = kDeltaTile / 4;
-constexpr int kDeltaPer = kDeltaWords / kDeltaThreads;   // words a thread owns
+constexpr int kDeltaThreads = 256;     // threads of a decode block (a segment)
+constexpr int kDeltaPer = 64;          // bytes of words a decode thread holds: 16 KiB a segment
+constexpr int kWalkThreads = 256;      // threads of a column-walk block
 
 // Units of 16 bytes: one a thread, blockIdx.y the lane (strided past 65,535).
 template <int K>
@@ -87,54 +121,251 @@ __global__ void __launch_bounds__(kThreads)
               encoding != 0, vec != 0);
 }
 
-// A block per lane, tile by tile (branch_filters_lane.cuh: delta by
-// tiles).  `out` is read back (decode's carry for dist > a tile), so it is
-// not __restrict__.
-__global__ void __launch_bounds__(kDeltaThreads)
-    delta_kernel(const uint8_t* __restrict__ in, uint8_t* out, long long L,
-                 const int32_t* __restrict__ valid, long long dist, int encoding, int al) {
-  __shared__ uint32_t ring[2 * kDeltaWords];
-  const int t = threadIdx.x;
-  const uint8_t* lin = in + blockIdx.x * L;
-  uint8_t* lout = out + blockIdx.x * L;
-  const int64_t end = delta_end(valid[blockIdx.x], L);
-  const bool a = al != 0;
-  int64_t base = 0;
-  for (; base < end; base += kDeltaTile) {
-    const int n = L - base < kDeltaTile ? (int)(L - base) : kDeltaTile;
-    const int half = (int)((base / kDeltaTile) & 1) * kDeltaWords;
+// Encode: a unit of 16 bytes a thread, blockIdx.y the lane (strided past
+// 65,535), as the converters.
+__global__ void __launch_bounds__(kThreads)
+    delta_encode_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long L,
+                        const int32_t* __restrict__ valid, long long dist, int n_lanes, int vec) {
+  const long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (u * kUnit >= L) return;
+  for (int lane = blockIdx.y; lane < n_lanes; lane += gridDim.y)
+    delta_encode_unit(in + lane * L, out + lane * L, L, u, dist, delta_end(valid[lane], L),
+                      vec != 0);
+}
+
+// The scan of the block's chunk totals, over k for each column: by warp
+// shuffles where a row is one unit (dist 1, 2 and 4), else by Hillis-Steele
+// steps over tot[k * nc + cu] (branch_filters_lane.cuh:
+// delta_scan_addend).  Returns the sum of chunks 0 .. k of t's column.
+// The caller syncs before it writes tot or wsum again.
+__device__ __forceinline__ uint32_t chunk_scan(uint32_t* tot, uint32_t* wsum, int t, uint32_t own,
+                                               const DeltaGeom& g) {
+  if (g.nc == 1) {
+    uint32_t v = own;
+    const int lane = t & 31;
 #pragma unroll
-    for (int k = 0; k < kDeltaPer; ++k)
-      delta_get(ring, half, lin, base, n, t + k * kDeltaThreads, a, kDeltaWords);
-    __syncthreads();
-    uint32_t v[kDeltaPer];
-    if (encoding) {
-#pragma unroll
-      for (int k = 0; k < kDeltaPer; ++k)
-        v[k] = delta_encode(ring, half, lin, base, dist, t + k * kDeltaThreads, kDeltaWords);
-    } else {
-      for (int sh = (int)dist; sh < kDeltaTile; sh *= 2) {   // none for dist >= a tile
-#pragma unroll
-        for (int k = 0; k < kDeltaPer; ++k)
-          v[k] = delta_pass(ring, half, sh, t + k * kDeltaThreads, kDeltaWords);
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < kDeltaPer; ++k)
-          ring_word(ring, half, t + k * kDeltaThreads, kDeltaWords) = v[k];
-        __syncthreads();
-      }
-#pragma unroll
-      for (int k = 0; k < kDeltaPer; ++k) {   // the carry reads the tile before only
-        v[k] = delta_carry(ring, half, lout, base, dist, t + k * kDeltaThreads, kDeltaWords);
-        ring_word(ring, half, t + k * kDeltaThreads, kDeltaWords) = v[k];
-      }
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t n = __shfl_up_sync(0xFFFFFFFFu, v, off);
+      if (lane >= off) v = vadd4(v, n);
     }
-#pragma unroll
-    for (int k = 0; k < kDeltaPer; ++k)
-      delta_put(lout, lin, base, n, end, t + k * kDeltaThreads, v[k], a);
-    __syncthreads();   // the next tile overwrites the one before this
+    if (lane == 31) wsum[t >> 5] = v;
+    __syncthreads();
+    return vadd4(delta_warp_prefix(wsum, t >> 5), v);
   }
-  delta_copy(lout, lin, base < L ? base : L, L, t, kDeltaThreads, a);
+  const int active = g.nc * g.K;
+  tot[t] = own;
+  __syncthreads();
+  for (int off = g.nc; off < active; off <<= 1) {
+    const uint32_t v = t < active ? delta_scan_addend(tot, t, off) : 0;
+    __syncthreads();
+    tot[t] = vadd4(tot[t], v);
+    __syncthreads();
+  }
+  return tot[t];
+}
+
+// Decode, launch 1 of 3: a block per (segment, lane) with bytes below the
+// lane's end; each column's total over the segment into the scratch entry.
+template <int KIND, int RK, bool AL>
+__global__ void __launch_bounds__(kDeltaThreads)
+    delta_reduce_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ scratch,
+                        long long L, const int32_t* __restrict__ valid, int dist, int n_lanes,
+                        DeltaGeom g) {
+  __shared__ uint32_t tot[kDeltaThreads], wsum[kDeltaThreads / 32];
+  const int t = threadIdx.x, cu = t % g.nc, k = t / g.nc;
+  const int64_t base = (int64_t)blockIdx.x * g.seg, at0 = delta_chunk_at(g, base, cu, k);
+  for (int lane = blockIdx.y; lane < n_lanes; lane += gridDim.y) {
+    if (base >= delta_end(valid[lane], L)) continue;   // the same for the whole block
+    uint32_t own = 0;
+    if (k < g.K) {
+      uint32_t x[RK];
+      delta_chunk_load<KIND, RK, AL>(in + lane * L + at0, g.nc * g.us, L - at0, x);
+      own = delta_chunk_total<KIND, RK>(x);
+    }
+    const uint32_t incl = chunk_scan(tot, wsum, t, own, g);
+    uint8_t* entry = scratch + ((int64_t)lane * g.nseg + blockIdx.x) * g.ent;
+    if (k == g.K - 1) delta_put_total<KIND>(entry, cu, incl);
+    if (KIND == kDByte && t < g.ent - dist) entry[dist + t] = 0;   // the entry's padding
+    __syncthreads();   // tot and wsum are written again for the next lane
+  }
+}
+
+// The scan of the staged byte columns' chunk totals, chunk-fastest (t = cu
+// * K + k; branch_filters_lane.cuh: delta_scan_addend_k).
+__device__ __forceinline__ uint32_t chunk_scan_k(uint32_t* tot, int t, int k, uint32_t own,
+                                                 const DeltaGeom& g) {
+  const int active = g.nc * g.K;
+  tot[t] = own;
+  __syncthreads();
+  for (int off = 1; off < g.K; off <<= 1) {
+    const uint32_t v = t < active ? delta_scan_addend_k(tot, t, k, off) : 0;
+    __syncthreads();
+    tot[t] = vadd4(tot[t], v);
+    __syncthreads();
+  }
+  return tot[t];
+}
+
+// Decode, launch 1 of 3, byte columns: the segment staged in shared memory
+// (delta_staged_bytes of it, dynamic), each column's total into the
+// scratch entry.
+template <bool AL>
+__global__ void __launch_bounds__(kDeltaThreads)
+    delta_reduce_bytes_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ scratch,
+                              long long L, const int32_t* __restrict__ valid, int dist,
+                              int n_lanes, DeltaGeom g) {
+  extern __shared__ __align__(16) uint8_t staged[];
+  __shared__ uint32_t tot[kDeltaThreads];
+  const int t = threadIdx.x, cu = t / g.K, k = t % g.K, active = g.nc * g.K;
+  const int64_t base = (int64_t)blockIdx.x * g.seg;
+  for (int lane = blockIdx.y; lane < n_lanes; lane += gridDim.y) {
+    if (base >= delta_end(valid[lane], L)) continue;   // the same for the whole block
+    for (int u = t; 16 * u < g.seg; u += kDeltaThreads)
+      delta_stage_unit<AL>(staged, in + lane * L, base, L, g, u);
+    __syncthreads();
+    const uint32_t own =
+        t < active ? delta_bytes_total(staged + k * (g.rk * g.nc + 4), g.nc, g.rk, cu) : 0;
+    const uint32_t incl = chunk_scan_k(tot, t, k, own, g);
+    uint8_t* entry = scratch + ((int64_t)lane * g.nseg + blockIdx.x) * g.ent;
+    if (t < active && k == g.K - 1) delta_put_total<kDByte>(entry, cu, incl);
+    if (t < g.ent - dist) entry[dist + t] = 0;   // the entry's padding
+    __syncthreads();   // staged and tot are written again for the next lane
+  }
+}
+
+// Decode, launch 3 of 3, byte columns: stage, scan each column's chunk in
+// place from its carry, write the segment out.
+template <bool AL>
+__global__ void __launch_bounds__(kDeltaThreads)
+    delta_scan_bytes_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                            const uint8_t* __restrict__ scratch, long long L,
+                            const int32_t* __restrict__ valid, int n_lanes, DeltaGeom g) {
+  extern __shared__ __align__(16) uint8_t staged[];
+  __shared__ uint32_t tot[kDeltaThreads];
+  const int t = threadIdx.x, cu = t / g.K, k = t % g.K, active = g.nc * g.K;
+  const int64_t base = (int64_t)blockIdx.x * g.seg;
+  uint8_t* chunk = staged + k * (g.rk * g.nc + 4);
+  for (int lane = blockIdx.y; lane < n_lanes; lane += gridDim.y) {
+    const int64_t end = delta_end(valid[lane], L);
+    const bool scan = base < end;   // the same for the whole block
+    uint32_t carry = 0;
+    if (scan && t < active)
+      carry = delta_get_total<kDByte>(scratch + ((int64_t)lane * g.nseg + blockIdx.x) * g.ent, cu);
+    for (int u = t; 16 * u < g.seg; u += kDeltaThreads)
+      delta_stage_unit<AL>(staged, in + lane * L, base, L, g, u);
+    __syncthreads();
+    if (scan) {
+      const uint32_t own = t < active ? delta_bytes_total(chunk, g.nc, g.rk, cu) : 0;
+      const uint32_t incl = chunk_scan_k(tot, t, k, own, g);
+      if (t < active)
+        delta_bytes_scan(chunk, g.nc, g.rk, cu, end - (base + (int64_t)k * g.rk * g.nc),
+                         vadd4(carry, vsub4(incl, own)));
+      __syncthreads();
+    }
+    for (int u = t; 16 * u < g.seg; u += kDeltaThreads)
+      delta_unstage_unit<AL>(out + lane * L, staged, base, L, g, u);
+    __syncthreads();   // staged and tot are written again for the next lane
+  }
+}
+
+// Decode, launch 2 of 3: a thread per (lane, entry word) turns the lane's
+// segment totals into carries, in place.
+__global__ void __launch_bounds__(kWalkThreads)
+    delta_carry_kernel(uint8_t* scratch, long long L, const int32_t* __restrict__ valid,
+                       int n_lanes, DeltaGeom g) {
+  const long long i = (long long)blockIdx.x * kWalkThreads + threadIdx.x;
+  const int words = g.ent / 4;
+  if (i >= (long long)n_lanes * words) return;
+  const long long lane = i / words;
+  const int64_t end = delta_end(valid[lane], L);
+  delta_carry_words(scratch + lane * g.nseg * g.ent, g.ent, (int)(i % words),
+                    (end + g.seg - 1) / g.seg);
+}
+
+// Decode, launch 3 of 3: a block per (segment, lane) scans its chunks from
+// the segment's carry (read first: the carry launch has finished) into the
+// output; a segment from the lane's end on is copied.  `out` differs from
+// `in`.
+template <int KIND, int RK, bool AL>
+__global__ void __launch_bounds__(kDeltaThreads)
+    delta_scan_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                      const uint8_t* __restrict__ scratch, long long L,
+                      const int32_t* __restrict__ valid, int n_lanes, DeltaGeom g) {
+  __shared__ uint32_t tot[kDeltaThreads], wsum[kDeltaThreads / 32];
+  const int t = threadIdx.x, cu = t % g.nc, k = t / g.nc;
+  const int64_t base = (int64_t)blockIdx.x * g.seg, at0 = delta_chunk_at(g, base, cu, k);
+  for (int lane = blockIdx.y; lane < n_lanes; lane += gridDim.y) {
+    const int64_t end = delta_end(valid[lane], L);
+    const bool scan = base < end;   // the same for the whole block
+    uint32_t carry = 0, x[RK], own = 0;
+    if (scan && k < g.K)
+      carry = delta_get_total<KIND>(scratch + ((int64_t)lane * g.nseg + blockIdx.x) * g.ent, cu);
+    if (k < g.K) {
+      delta_chunk_load<KIND, RK, AL>(in + lane * L + at0, g.nc * g.us, L - at0, x);
+      own = delta_chunk_total<KIND, RK>(x);
+    }
+    uint32_t run = 0;
+    if (scan) {
+      run = vadd4(carry, vsub4(chunk_scan(tot, wsum, t, own, g), own));
+      __syncthreads();   // tot and wsum are written again for the next lane
+    }
+    if (k < g.K)
+      delta_chunk_store<KIND, RK, AL>(out + lane * L + at0, g.nc * g.us, L - at0, end - at0,
+                                      run, x);
+  }
+}
+
+// Decode for the distances the segments leave out (over 256): a thread per
+// column unit of a lane walks its rows (branch_filters_lane.cuh:
+// delta_walk_column).
+__global__ void __launch_bounds__(kWalkThreads)
+    delta_walk_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, long long L,
+                      const int32_t* __restrict__ valid, long long dist, int n_lanes,
+                      int words) {
+  const long long c = (long long)blockIdx.x * kWalkThreads + threadIdx.x;
+  if (c >= (words ? dist / 4 : dist)) return;
+  for (int lane = blockIdx.y; lane < n_lanes; lane += gridDim.y)
+    delta_walk_column(in + lane * L, out + lane * L, L, delta_end(valid[lane], L), dist, c,
+                      words != 0);
+}
+
+template <int KIND, int RK, bool AL>
+int delta_segments(const uint8_t* in, uint8_t* out, uint8_t* scratch, long long L,
+                   const int32_t* valid, int dist, int n_lanes, const DeltaGeom& g,
+                   cudaStream_t st) {
+  const dim3 grid((unsigned)g.nseg, (unsigned)(n_lanes < kMaxGridY ? n_lanes : kMaxGridY));
+  delta_reduce_kernel<KIND, RK, AL><<<grid, kDeltaThreads, 0, st>>>(in, scratch, L, valid, dist,
+                                                                    n_lanes, g);
+  const long long words = (long long)n_lanes * (g.ent / 4);
+  delta_carry_kernel<<<(unsigned)((words + kWalkThreads - 1) / kWalkThreads), kWalkThreads, 0,
+                       st>>>(scratch, L, valid, n_lanes, g);
+  delta_scan_kernel<KIND, RK, AL><<<grid, kDeltaThreads, 0, st>>>(in, out, scratch, L, valid,
+                                                                  n_lanes, g);
+  return (int)cudaGetLastError();
+}
+
+template <int KIND, int RK>
+int delta_segments(const uint8_t* in, uint8_t* out, uint8_t* scratch, long long L,
+                   const int32_t* valid, int dist, int n_lanes, const DeltaGeom& g, bool al,
+                   cudaStream_t st) {
+  return al ? delta_segments<KIND, RK, true>(in, out, scratch, L, valid, dist, n_lanes, g, st)
+            : delta_segments<KIND, RK, false>(in, out, scratch, L, valid, dist, n_lanes, g, st);
+}
+
+template <bool AL>
+int delta_segments_bytes(const uint8_t* in, uint8_t* out, uint8_t* scratch, long long L,
+                         const int32_t* valid, int dist, int n_lanes, const DeltaGeom& g,
+                         cudaStream_t st) {
+  const dim3 grid((unsigned)g.nseg, (unsigned)(n_lanes < kMaxGridY ? n_lanes : kMaxGridY));
+  const int smem = delta_staged_bytes(g);
+  delta_reduce_bytes_kernel<AL><<<grid, kDeltaThreads, smem, st>>>(in, scratch, L, valid, dist,
+                                                                   n_lanes, g);
+  const long long words = (long long)n_lanes * (g.ent / 4);
+  delta_carry_kernel<<<(unsigned)((words + kWalkThreads - 1) / kWalkThreads), kWalkThreads, 0,
+                       st>>>(scratch, L, valid, n_lanes, g);
+  delta_scan_bytes_kernel<AL><<<grid, kDeltaThreads, smem, st>>>(in, out, scratch, L, valid,
+                                                                 n_lanes, g);
+  return (int)cudaGetLastError();
 }
 
 bool aligned(const void* in, const void* out, long long row, int to) {
@@ -198,13 +429,59 @@ extern "C" int lzt_ia64_batch(const void* in, void* out, long long row, const vo
   return (int)cudaGetLastError();
 }
 
-// dist >= 1 (a dist past the row acts as the row's length); out [n_lanes, row].
+// Bytes of scratch lzt_delta_batch needs: a decode at dist <= 256 (after
+// clamping to the row), one entry of dist rounded up to 4 bytes per
+// segment per lane; 0 otherwise.
+extern "C" long long lzt_delta_scratch_bytes(long long row, long long dist, int n_lanes,
+                                             int encoding) {
+  if (encoding || n_lanes <= 0 || row <= 0 || dist < 1) return 0;
+  const long long d = dist < row ? dist : row;
+  if (!delta_segmented(d, kDeltaThreads)) return 0;
+  return (long long)n_lanes * delta_geom(d, row, kDeltaThreads, kDeltaPer).nseg *
+         ((d + 3) & ~3ll);
+}
+
+// dist >= 1 (a dist past the row acts as the row's length); out [n_lanes,
+// row]; scratch of lzt_delta_scratch_bytes(row, dist, n_lanes, encoding)
+// bytes, 4-aligned (unused, and may be null, where that is 0).  Encode is
+// one launch, decode three (dist <= 256) or one column walk.
 extern "C" int lzt_delta_batch(const void* in, void* out, long long row, const void* valid,
-                               long long dist, int n_lanes, int encoding, void* stream) {
+                               long long dist, int n_lanes, int encoding, void* scratch,
+                               void* stream) {
   if (n_lanes <= 0 || row == 0) return 0;
   if (row < 0 || row >= (1ll << 31) || dist < 1) return (int)cudaErrorInvalidValue;
-  delta_kernel<<<n_lanes, kDeltaThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)in, (uint8_t*)out, row, (const int32_t*)valid, dist < row ? dist : row,
-      encoding, aligned(in, out, row, 4));
-  return (int)cudaGetLastError();
+  const long long d = dist < row ? dist : row;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* i8 = (const uint8_t*)in;
+  uint8_t* o8 = (uint8_t*)out;
+  const int32_t* v = (const int32_t*)valid;
+  const int al = aligned(in, out, row, 4), vec = aligned(in, out, row, 16);
+  if (encoding) {
+    delta_encode_kernel<<<unit_grid((row + kUnit - 1) / kUnit, n_lanes), kThreads, 0, st>>>(
+        i8, o8, row, v, d, n_lanes, vec);
+    return (int)cudaGetLastError();
+  }
+  if (!delta_segmented(d, kDeltaThreads)) {
+    const int words = al && d % 4 == 0;
+    const long long cols = words ? d / 4 : d;
+    const dim3 grid((unsigned)((cols + kWalkThreads - 1) / kWalkThreads),
+                    (unsigned)(n_lanes < kMaxGridY ? n_lanes : kMaxGridY));
+    delta_walk_kernel<<<grid, kWalkThreads, 0, st>>>(i8, o8, row, v, d, n_lanes, words);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr || ((uintptr_t)scratch & 3)) return (int)cudaErrorInvalidValue;
+  const DeltaGeom g = delta_geom(d, row, kDeltaThreads, kDeltaPer);
+  uint8_t* sc = (uint8_t*)scratch;
+  const int di = (int)d;
+  switch (g.kind) {
+    case kD1:
+      return delta_segments<kD1, kDeltaPer / 4>(i8, o8, sc, row, v, di, n_lanes, g, vec, st);
+    case kD2:
+      return delta_segments<kD2, kDeltaPer / 4>(i8, o8, sc, row, v, di, n_lanes, g, vec, st);
+    case kDWord:
+      return delta_segments<kDWord, kDeltaPer / 4>(i8, o8, sc, row, v, di, n_lanes, g, vec, st);
+    default:
+      return vec ? delta_segments_bytes<true>(i8, o8, sc, row, v, di, n_lanes, g, st)
+                 : delta_segments_bytes<false>(i8, o8, sc, row, v, di, n_lanes, g, st);
+  }
 }

@@ -21,18 +21,15 @@
 // middle byte would need both 0xF0 and 0xF8 in its top five bits), so no
 // two threads write one byte.
 //
-// Delta by tiles.  A block owns a lane and walks it in tiles of `tile`
-// bytes through a ring of two tiles in shared memory (a tile's 32-bit
-// words at their absolute word index mod twice the tile's words).  Encode
-// is a gather: out[i] = d[i] - d[i - dist], each word's shifted source
-// taken from the ring by a funnel of two words (dist <= tile) or bytewise
-// from the row (dist > tile).  Decode is a prefix sum per residue class
-// mod `dist`: within a tile, Hillis-Steele passes at shifts dist, 2 dist,
-// 4 dist, ... < tile add byte vectors four classes a word (bytes added
-// without carries between them); then each byte adds the last output of
-// its class before the tile (the carry), from the ring's other tile or,
-// for dist > tile, from the output row itself, which the block wrote in an
-// earlier tile.
+// Delta.  Encode is a gather with no carry: a thread owns 16 bytes and
+// subtracts the 16 bytes `dist` before them, read from the row.  Decode is
+// a prefix sum per residue class mod `dist`, cut into segments of whole
+// rows (branch_filters.cu says how the launches use the pieces below): a
+// reduce gives each segment's per-class totals, a carry step turns them
+// into the sums before each segment, and a scan adds those to the
+// segment's own prefix sums.  Bytes are added as vectors, four to a
+// 32-bit word with no carries between them (vadd4), so a word holds four
+// classes.
 #pragma once
 
 #include <stdint.h>
@@ -294,7 +291,7 @@ __host__ __device__ __forceinline__ void ia64_unit(const uint8_t* in, uint8_t* o
 }
 
 // ---------------------------------------------------------------------------
-// Delta: tiles through a ring of two in shared memory
+// Delta: encode a gather, decode reduce-then-scan over segments
 // ---------------------------------------------------------------------------
 
 // The bytes a lane transforms: [0, end), end = valid clamped to [0, L]
@@ -303,120 +300,416 @@ __host__ __device__ __forceinline__ int64_t delta_end(int32_t valid, int64_t L) 
   return valid <= 0 ? 0 : (valid < L ? valid : L);
 }
 
-// The ring: two tiles of `tw` words (a power of two), the tile at `base`
-// in the half `half` = (base / tile) % 2 * tw.  Offsets below are relative
-// to the current tile's start, in words (r) or bytes (b), -tile <= b.
-__host__ __device__ __forceinline__ uint32_t& ring_word(uint32_t* ring, int half, int r, int tw) {
-  return ring[(half + r) & (2 * tw - 1)];
+// Bytes r .. r + 3 of the 8 bytes hi:lo (0 <= r < 4).
+__host__ __device__ __forceinline__ uint32_t funnel8(uint32_t lo, uint32_t hi, int r) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, 8 * r);
+#else
+  return r ? (lo >> (8 * r)) | (hi << (32 - 8 * r)) : lo;
+#endif
 }
 
-__host__ __device__ __forceinline__ uint32_t ring_byte(const uint32_t* ring, int half, int b,
-                                                      int tw) {
-  return reinterpret_cast<const uint8_t*>(ring)[(4 * half + b) & (8 * tw - 1)];
+// v's bytes below `e` (bytes of the word before the lane's end), x's from
+// there on.
+__host__ __device__ __forceinline__ uint32_t blend_end(uint32_t v, uint32_t x, int64_t e) {
+  if (e >= 4) return v;
+  const uint32_t m = e <= 0 ? 0u : 0xFFFFFFFFu >> (32 - 8 * e);
+  return (v & m) | (x & ~m);
 }
 
-// Bytes pr - sh .. pr - sh + 3 of the ring (pr 4-aligned) as a word, those
-// below `lower` (4-aligned, >= -tile) read as 0.
-__host__ __device__ __forceinline__ uint32_t ring_shifted(uint32_t* ring, int half, int pr, int sh,
-                                                          int lower, int tw) {
-  const int a = pr - sh;
-  if (a <= lower - 4) return 0;
-  const int r = a & 3, q = (a - r) / 4;   // the word holding byte a
-  const uint32_t lo = 4 * q >= lower ? ring_word(ring, half, q, tw) : 0;
-  if (r == 0) return lo;
-  const uint32_t hi = ring_word(ring, half, q + 1, tw);   // 4 (q + 1) >= lower
-  return (lo >> (8 * r)) | (hi << (32 - 8 * r));
-}
-
-// Word w of the tile at base (n of its bytes in the row) from the row into
-// the ring; bytes past the row read as 0.  `al`: the row's address and L
-// are 4-aligned.
-__host__ __device__ __forceinline__ void delta_get(uint32_t* ring, int half, const uint8_t* row,
-                                                   int64_t base, int n, int w, bool al, int tw) {
-  const int pr = 4 * w;
-  uint32_t v = 0;
-  if (al && pr + 4 <= n) {
-    v = *reinterpret_cast<const uint32_t*>(row + base + pr);
-  } else {
-    for (int k = 0; k < 4; ++k)
-      if (pr + k < n) v |= (uint32_t)row[base + pr + k] << (8 * k);
-  }
-  ring_word(ring, half, w, tw) = v;
-}
-
-// One decode pass at shift sh (< the tile): word w's new value, the word
-// plus the one sh bytes before it within the tile.
-__host__ __device__ __forceinline__ uint32_t delta_pass(uint32_t* ring, int half, int sh, int w,
-                                                        int tw) {
-  return vadd4(ring_word(ring, half, w, tw), ring_shifted(ring, half, 4 * w, sh, 0, tw));
-}
-
-// Decode: word w after its carry, each byte i plus the output at
-// base - dist + ((i - base) mod dist), the last of its class before the
-// tile (0 before the lane's start): from the ring's other tile for
-// dist <= tile, else from the output row.
-__host__ __device__ __forceinline__ uint32_t delta_carry(uint32_t* ring, int half,
-                                                         const uint8_t* out_row, int64_t base,
-                                                         int64_t dist, int w, int tw) {
-  const uint32_t own = ring_word(ring, half, w, tw);
-  uint32_t c = 0;
-  if (dist <= 4 * tw) {
-    if (base == 0) return own;
-    int m = (4 * w) % (int)dist;
-    for (int k = 0; k < 4; ++k) {
-      c |= ring_byte(ring, half, m - (int)dist, tw) << (8 * k);
-      if (++m == dist) m = 0;
+// Encode, unit u (bytes 16u .. 16u + 15, cut at L): out[i] = d[i] -
+// d[i - dist] for i < end (d[i] for i < dist), d[i] from end on.  With
+// `vec` (row and buffers 16-aligned) the unit is one 16-byte load and
+// store, and the shifted bytes one unaligned window funnelled out of the
+// two aligned units that hold it (dist is one for the grid, so every
+// thread takes the same branch).
+__host__ __device__ __forceinline__ void delta_encode_unit(const uint8_t* in, uint8_t* out,
+                                                           int64_t L, int64_t u, int64_t dist,
+                                                           int64_t end, bool vec) {
+  const int64_t at = u * kUnit;
+  if (vec && at + kUnit <= L) {
+    uint32_t x[4];
+    load_unit(x, in + at, true);
+    if (at < end) {
+      uint32_t s[4] = {0, 0, 0, 0};
+      const int64_t from = at - dist;
+      if (from >= 0) {
+        const int sh = (int)(from & 15), k = sh >> 2, r = sh & 3;
+        uint32_t c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        load_unit(c, in + (from - sh), true);
+        if (sh) load_unit(c + 4, in + (from - sh) + kUnit, true);   // from - sh + 16 <= at
+        uint32_t q[5];
+        for (int j = 0; j < 5; ++j)
+          q[j] = k == 0 ? c[j] : k == 1 ? c[j + 1] : k == 2 ? c[j + 2] : c[j + 3];
+        for (int j = 0; j < 4; ++j) s[j] = funnel8(q[j], q[j + 1], r);
+      } else if (from + kUnit > 0) {   // the unit that holds byte dist
+        for (int b = 0; b < kUnit; ++b)
+          if (from + b >= 0) s[b >> 2] |= (uint32_t)in[from + b] << (8 * (b & 3));
+      }
+      for (int j = 0; j < 4; ++j) x[j] = blend_end(vsub4(x[j], s[j]), x[j], end - at - 4 * j);
     }
-  } else {
-    for (int k = 0; k < 4; ++k) {
-      const int64_t j = base + 4 * w + k - dist;
-      if (j >= 0) c |= (uint32_t)out_row[j] << (8 * k);
-    }
-  }
-  return vadd4(own, c);
-}
-
-// Encode: word w as d[i] - d[i - dist] (d[i] for i < dist), the shifted
-// bytes from the ring for dist <= tile, else from the input row.
-__host__ __device__ __forceinline__ uint32_t delta_encode(uint32_t* ring, int half,
-                                                          const uint8_t* in_row, int64_t base,
-                                                          int64_t dist, int w, int tw) {
-  uint32_t s = 0;
-  if (dist <= 4 * tw) {
-    s = ring_shifted(ring, half, 4 * w, (int)dist, base == 0 ? 0 : -4 * tw, tw);
-  } else {
-    for (int k = 0; k < 4; ++k) {
-      const int64_t j = base + 4 * w + k - dist;
-      if (j >= 0) s |= (uint32_t)in_row[j] << (8 * k);
-    }
-  }
-  return vsub4(ring_word(ring, half, w, tw), s);
-}
-
-// Word w of the tile at base into the output row: byte i (i < n, the
-// tile's bytes in the row) is v's for i < end and the input's from end on.
-__host__ __device__ __forceinline__ void delta_put(uint8_t* out_row, const uint8_t* in_row,
-                                                   int64_t base, int n, int64_t end, int w,
-                                                   uint32_t v, bool al) {
-  const int pr = 4 * w;
-  const int64_t i = base + pr;
-  if (al && pr + 4 <= n && i + 4 <= end) {
-    *reinterpret_cast<uint32_t*>(out_row + i) = v;
+    store_unit(out + at, x, true);
     return;
   }
-  for (int k = 0; k < 4 && pr + k < n; ++k)
-    out_row[i + k] = i + k < end ? (uint8_t)(v >> (8 * k)) : in_row[i + k];
+  for (int64_t p = at; p < at + kUnit && p < L; ++p)
+    out[p] = p < end ? (uint8_t)(in[p] - (p >= dist ? in[p - dist] : 0)) : in[p];
 }
 
-// Bytes [from, L) of a lane copied as they are, word `t` of `threads`.
-__host__ __device__ __forceinline__ void delta_copy(uint8_t* out_row, const uint8_t* in_row,
-                                                    int64_t from, int64_t L, int t, int threads,
-                                                    bool al) {
-  if (al) {   // from is a multiple of the tile, so 4-aligned
-    for (int64_t i = from + 4 * (int64_t)t; i < L; i += 4 * (int64_t)threads)
-      *reinterpret_cast<uint32_t*>(out_row + i) = *reinterpret_cast<const uint32_t*>(in_row + i);
-  } else {
-    for (int64_t i = from + t; i < L; i += threads) out_row[i] = in_row[i];
+// Decode by segments.  A lane is cut into segments of whole rows of `dist`
+// bytes (the JAX formulation's [rows, dist] view), so every segment starts
+// at class 0 and its per-class totals are a vector indexed by column.  A
+// block owns a segment: its threads take (column unit, chunk) pairs, a
+// column unit being a byte (kDByte) or a 32-bit word of four classes (the
+// rest), and a chunk `rk` consecutive rows of it.  Words go column-fastest
+// (a warp reads a row's consecutive words) straight from the row into
+// registers; for dist 1 and 2 a word is 4 / dist rows.  Bytes go through
+// shared memory (delta_stage_unit) and are taken chunk-fastest.
+//
+// A class vector is a word whose byte j holds the sum mod 256 of class j
+// (classes repeated for dist 1 and 2; byte 0 alone for kDByte): chunk
+// totals, the block's scan of them, the segments' entries in the scratch
+// and their carries are class vectors, added by vadd4.  Within a thread
+// the sums are cheaper: dist 1 and 2 take a word's prefix sums as dot
+// products of its bytes with 0/1 masks (dp4a) from 32-bit running sums,
+// whose low bytes are the sums mod 256, and pack the four low bytes back
+// into a word (byte_perm); dist a multiple of 4 adds words as byte
+// vectors; kDByte adds plain integers.
+enum DeltaKind { kD1 = 0, kD2 = 1, kDWord = 2, kDByte = 3 };
+
+constexpr int kDeltaMaxSegmented = 256;   // longer distances walk
+
+struct DeltaGeom {
+  int kind;      // DeltaKind
+  int us;        // bytes of a column unit: 4, or 1 for kDByte
+  int nc;        // column units a row (1 for dist 1, 2 and 4)
+  int K;         // chunks a column: threads nc * K of the block take part
+  int rk;        // rows a chunk: per / 4 words or per bytes
+  int64_t seg;   // bytes a segment: rk * K * nc * us, a multiple of dist
+  int64_t nseg;  // segments a lane of L bytes
+  int ent;       // bytes of a segment's entry in the scratch: dist rounded up to 4
+};
+
+__host__ __device__ __forceinline__ int delta_kind(int64_t dist) {
+  return dist == 1 ? kD1 : dist == 2 ? kD2 : dist % 4 == 0 ? kDWord : kDByte;
+}
+
+// Column units a row.
+__host__ __device__ __forceinline__ int64_t delta_columns(int64_t dist) {
+  const int kind = delta_kind(dist);
+  return kind == kDWord ? dist / 4 : kind == kDByte ? dist : 1;
+}
+
+// The segment path takes dist <= 256 where a row's columns fit in a block;
+// longer distances walk their columns (delta_walk_column).
+__host__ __device__ __forceinline__ bool delta_segmented(int64_t dist, int threads) {
+  return dist <= kDeltaMaxSegmented && delta_columns(dist) <= threads;
+}
+
+// The geometry at `threads` threads a block, a thread holding `per` bytes
+// of words (per / 4 of them) or `per` rows of a byte column.
+__host__ __device__ __forceinline__ DeltaGeom delta_geom(int64_t dist, int64_t L, int threads,
+                                                        int per) {
+  DeltaGeom g;
+  g.kind = delta_kind(dist);
+  g.us = g.kind == kDByte ? 1 : 4;
+  g.nc = (int)delta_columns(dist);
+  g.K = threads / g.nc;
+  g.rk = g.kind == kDByte ? per : per / 4;
+  g.seg = (int64_t)g.rk * g.K * g.nc * g.us;
+  g.nseg = (L + g.seg - 1) / g.seg;
+  g.ent = (int)((dist + 3) & ~3);
+  return g;
+}
+
+// The sum of x's four bytes times m's, plus c; and the low bytes of four
+// words as one.
+__host__ __device__ __forceinline__ uint32_t dot4(uint32_t x, uint32_t m, uint32_t c) {
+#ifdef __CUDA_ARCH__
+  return __dp4a(x, m, c);
+#else
+  for (int j = 0; j < 4; ++j) c += ((x >> (8 * j)) & 0xFF) * ((m >> (8 * j)) & 0xFF);
+  return c;
+#endif
+}
+
+__host__ __device__ __forceinline__ uint32_t pack_low(uint32_t a, uint32_t b, uint32_t c,
+                                                      uint32_t d) {
+#ifdef __CUDA_ARCH__
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+#else
+  return (a & 0xFF) | (b & 0xFF) << 8 | (c & 0xFF) << 16 | (d & 0xFF) << 24;
+#endif
+}
+
+// Byte offset, in its lane, of the first unit of the chunk (cu, k) of the
+// segment at `base`; its rows follow nc * us bytes apart.
+__host__ __device__ __forceinline__ int64_t delta_chunk_at(const DeltaGeom& g, int64_t base,
+                                                           int cu, int k) {
+  return base + ((int64_t)k * g.rk * g.nc + cu) * g.us;
+}
+
+// A chunk's words (not kDByte) from `p`, its first byte, `n` bytes of the
+// lane from p on (bytes past them read as 0).  AL: the rows and buffers are
+// 16-aligned, so a unit is in the lane or past it whole, and a chunk of
+// consecutive words (stride 4: dist 1, 2 and 4) loads four at once.
+template <int KIND, int RK, bool AL>
+__host__ __device__ __forceinline__ void delta_chunk_load(const uint8_t* p, int stride, int64_t n,
+                                                          uint32_t x[RK]) {
+  if (AL && RK % 4 == 0 && stride == 4) {
+#pragma unroll
+    for (int i = 0; i < RK; i += 4) {
+      if (4 * i < n) {
+        load_unit(x + i, p + 4 * i, true);
+      } else {
+        x[i] = x[i + 1] = x[i + 2] = x[i + 3] = 0;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int q = i * stride;
+    if (AL) {
+      x[i] = q < n ? *reinterpret_cast<const uint32_t*>(p + q) : 0;
+    } else {
+      x[i] = 0;
+      for (int b = 0; b < 4; ++b)
+        if (q + b < n) x[i] |= (uint32_t)p[q + b] << (8 * b);
+    }
+  }
+}
+
+// The chunk's class vector (not kDByte).
+template <int KIND, int RK>
+__host__ __device__ __forceinline__ uint32_t delta_chunk_total(const uint32_t x[RK]) {
+  uint32_t s0 = 0, s1 = 0;
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    if (KIND == kD1) {
+      s0 = dot4(x[i], 0x01010101u, s0);
+    } else if (KIND == kD2) {
+      s0 = dot4(x[i], 0x00010001u, s0);
+      s1 = dot4(x[i], 0x01000100u, s1);
+    } else {
+      s0 = vadd4(s0, x[i]);
+    }
+  }
+  if (KIND == kD1) return (s0 & 0xFF) * 0x01010101u;
+  if (KIND == kD2) return ((s0 & 0xFF) | (s1 & 0xFF) << 8) * 0x00010001u;
+  return s0;
+}
+
+// One step of the block's scan of chunk totals, tot[k * nc + cu] over k
+// for each column (Hillis-Steele at offsets nc, 2 nc, ... < nc * K; rows
+// of more than one unit): thread t's addend, read before any thread of the
+// step writes.
+__host__ __device__ __forceinline__ uint32_t delta_scan_addend(const uint32_t* tot, int t,
+                                                              int off) {
+  return t >= off ? tot[t - off] : 0;
+}
+
+// Rows of one unit (nc == 1) scan by warps instead: each warp's inclusive
+// scan by shuffles, then the totals of the warps before this one's.
+__host__ __device__ __forceinline__ uint32_t delta_warp_prefix(const uint32_t* wsum, int warp) {
+  uint32_t s = 0;
+  for (int w = 0; w < warp; ++w) s = vadd4(s, wsum[w]);
+  return s;
+}
+
+// A segment's entry in the scratch: column unit cu's class vector, a word
+// at byte 4 cu (kD1 and kD2: the one word, classes repeated), or a byte.
+template <int KIND>
+__host__ __device__ __forceinline__ void delta_put_total(uint8_t* entry, int cu, uint32_t v) {
+  if (KIND == kDByte) entry[cu] = (uint8_t)v;
+  else *reinterpret_cast<uint32_t*>(entry + 4 * cu) = v;
+}
+
+template <int KIND>
+__host__ __device__ __forceinline__ uint32_t delta_get_total(const uint8_t* entry, int cu) {
+  if (KIND == kDByte) return entry[cu];
+  return *reinterpret_cast<const uint32_t*>(entry + 4 * cu);
+}
+
+// Byte columns (kDByte) through shared memory.  The segment is staged by
+// 16-byte units into its chunks of rk * nc bytes, each followed by 4 bytes
+// of padding: threads take chunks k-fastest (t = cu * K + k), and the odd
+// pitch in words puts the 32 chunks a warp reads in 32 different banks.
+// Each thread totals its column down its chunk and later scans it in place;
+// the segment then goes back out by 16-byte units.
+__host__ __device__ __forceinline__ int delta_staged_at(const DeltaGeom& g, int o) {
+  const int cb = g.rk * g.nc;
+  return o / cb * (cb + 4) + o % cb;
+}
+
+// Bytes of the staged segment.
+__host__ __device__ __forceinline__ int delta_staged_bytes(const DeltaGeom& g) {
+  return g.K * (g.rk * g.nc + 4);
+}
+
+// Unit u (segment bytes 16u .. 16u + 15, cut at the segment's end) of the
+// segment at `base` of a row into the staged segment `s`, bytes past L as
+// 0.  AL: row and L 16-aligned.
+template <bool AL>
+__host__ __device__ __forceinline__ void delta_stage_unit(uint8_t* s, const uint8_t* row,
+                                                          int64_t base, int64_t L,
+                                                          const DeltaGeom& g, int u) {
+  const int o = 16 * u, m = g.seg - o < 16 ? (int)(g.seg - o) : 16;
+  const int64_t p = base + o;
+  if (AL && m == 16 && (g.rk * g.nc) % 16 == 0) {   // the unit lies in one chunk
+    uint32_t w[4] = {0, 0, 0, 0};
+    if (p < L) load_unit(w, row + p, true);
+    uint32_t* d = reinterpret_cast<uint32_t*>(s + delta_staged_at(g, o));
+    for (int j = 0; j < 4; ++j) d[j] = w[j];
+    return;
+  }
+  for (int b = 0; b < m; ++b) s[delta_staged_at(g, o + b)] = p + b < L ? row[p + b] : 0;
+}
+
+template <bool AL>
+__host__ __device__ __forceinline__ void delta_unstage_unit(uint8_t* row, const uint8_t* s,
+                                                            int64_t base, int64_t L,
+                                                            const DeltaGeom& g, int u) {
+  const int o = 16 * u, m = g.seg - o < 16 ? (int)(g.seg - o) : 16;
+  const int64_t p = base + o;
+  if (AL && m == 16 && (g.rk * g.nc) % 16 == 0) {
+    if (p >= L) return;
+    const uint32_t* d = reinterpret_cast<const uint32_t*>(s + delta_staged_at(g, o));
+    const uint32_t w[4] = {d[0], d[1], d[2], d[3]};
+    store_unit(row + p, w, true);
+    return;
+  }
+  for (int b = 0; b < m && p + b < L; ++b) row[p + b] = s[delta_staged_at(g, o + b)];
+}
+
+// Column cu of the staged chunk at c: its bytes' total, and its scan in
+// place from run (bytes from e on, the lane's end counted from the chunk's
+// start, stay as they are).
+__host__ __device__ __forceinline__ uint32_t delta_bytes_total(const uint8_t* c, int nc, int rk,
+                                                              int cu) {
+  uint32_t s = 0;
+  for (int i = 0; i < rk; ++i) s += c[i * nc + cu];
+  return s & 0xFF;
+}
+
+__host__ __device__ __forceinline__ void delta_bytes_scan(uint8_t* c, int nc, int rk, int cu,
+                                                         int64_t e, uint32_t run) {
+  for (int i = 0; i < rk; ++i) {
+    const int q = i * nc + cu;
+    run += c[q];
+    if (q < e) c[q] = (uint8_t)run;
+  }
+}
+
+// One step of the staged columns' scan, chunk-fastest (t = cu * K + k):
+// thread t's addend.
+__host__ __device__ __forceinline__ uint32_t delta_scan_addend_k(const uint32_t* tot, int t, int k,
+                                                                int off) {
+  return k >= off ? tot[t - off] : 0;
+}
+
+// Carries: word w of a lane's n segment entries (`ent` bytes each), in
+// place, each becomes the sum of the entries before it.  Eight entries are
+// loaded before any is summed, so the loads do not wait on the chain.
+__host__ __device__ __forceinline__ void delta_carry_words(uint8_t* lane_entries, int ent, int w,
+                                                           int64_t n) {
+  uint32_t run = 0;
+  for (int64_t s0 = 0; s0 < n; s0 += 8) {
+    uint32_t v[8];
+    const int m = n - s0 < 8 ? (int)(n - s0) : 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < m) v[j] = *reinterpret_cast<const uint32_t*>(lane_entries + (s0 + j) * ent + 4 * w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < m) {
+        *reinterpret_cast<uint32_t*>(lane_entries + (s0 + j) * ent + 4 * w) = run;
+        run = vadd4(run, v[j]);
+      }
+  }
+}
+
+// One unit of output at p + q: y's bytes below e (the lane's end, from p),
+// x's (the input) from there to n (the lane's length, from p), none past.
+template <int KIND, bool AL>
+__host__ __device__ __forceinline__ void delta_put_unit(uint8_t* p, int q, int64_t n, int64_t e,
+                                                        uint32_t y, uint32_t x) {
+  if (KIND == kDByte) {
+    if (q < n) p[q] = (uint8_t)(q < e ? y : x);
+    return;
+  }
+  if (AL) {
+    if (q < n) *reinterpret_cast<uint32_t*>(p + q) = blend_end(y, x, e - q);
+    return;
+  }
+  const uint32_t v = blend_end(y, x, e - q);
+  for (int b = 0; b < 4 && q + b < n; ++b) p[q + b] = (uint8_t)(v >> (8 * b));
+}
+
+// Scan: the chunk's words (not kDByte) from `run` (the class vector of the
+// sums before it: the segment's carry plus the chunks above it) into the
+// output at p;
+// n and e as for delta_put_unit.
+template <int KIND, int RK, bool AL>
+__host__ __device__ __forceinline__ void delta_chunk_store(uint8_t* p, int stride, int64_t n,
+                                                           int64_t e, uint32_t run,
+                                                           const uint32_t x[RK]) {
+  uint32_t c0 = run & 0xFF, c1 = (run >> 8) & 0xFF, y[4];
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    uint32_t v;
+    if (KIND == kD1) {
+      const uint32_t p0 = dot4(x[i], 0x1u, c0), p1 = dot4(x[i], 0x101u, c0),
+                     p2 = dot4(x[i], 0x10101u, c0);
+      c0 = dot4(x[i], 0x01010101u, c0);
+      v = pack_low(p0, p1, p2, c0);
+    } else if (KIND == kD2) {
+      const uint32_t p0 = dot4(x[i], 0x1u, c0), p1 = dot4(x[i], 0x100u, c1);
+      c0 = dot4(x[i], 0x10001u, c0);
+      c1 = dot4(x[i], 0x01000100u, c1);
+      v = pack_low(p0, p1, c0, c1);
+    } else {
+      v = run = vadd4(run, x[i]);
+    }
+    if (AL && RK % 4 == 0 && stride == 4) {   // four words at once
+      y[i & 3] = v;
+      if ((i & 3) == 3) {
+        const int q = 4 * (i - 3);
+        if (q + 16 <= e) {
+          store_unit(p + q, y, true);
+        } else {
+          for (int j = 0; j < 4; ++j)
+            delta_put_unit<KIND, AL>(p, q + 4 * j, n, e, y[j], x[i - 3 + j]);
+        }
+      }
+    } else {
+      delta_put_unit<KIND, AL>(p, i * stride, n, e, v, x[i]);
+    }
+  }
+}
+
+// Decode for the distances delta_segmented leaves out: column unit c (a
+// word where dist % 4 == 0 and the rows are 4-aligned, else a byte) down
+// every row of the lane, eight rows loaded before they are summed.
+// dist <= L.
+__host__ __device__ __forceinline__ void delta_walk_column(const uint8_t* in, uint8_t* out,
+                                                           int64_t L, int64_t end, int64_t dist,
+                                                           int64_t c, bool words) {
+  uint32_t run = 0;
+  for (int64_t p0 = words ? 4 * c : c; p0 < L; p0 += 8 * dist) {
+    uint32_t x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int64_t p = p0 + j * dist;
+      x[j] = p >= L ? 0 : words ? *reinterpret_cast<const uint32_t*>(in + p) : in[p];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int64_t p = p0 + j * dist;
+      if (p >= L) break;
+      run = vadd4(run, x[j]);
+      if (words) delta_put_unit<kDWord, true>(out + p, 0, L - p, end - p, run, x[j]);
+      else delta_put_unit<kDByte, false>(out + p, 0, L - p, end - p, run, x[j]);
+    }
   }
 }
 

@@ -1141,64 +1141,242 @@ extern "C" int lzt_branch_batch_cpu(int kind, const void* in, void* out, long lo
   return 0;
 }
 
-// X4's delta (branch_filters.cu) with `threads` threads a block and tiles
-// of `tile` bytes (a power of two, a multiple of 4 * threads): each lane's
-// tiles in order, each phase's threads last to first, the decode passes'
-// reads before their writes as the kernel's barriers order them.  The ring
-// starts as 0xA5 bytes, so a read of a word no tile wrote shows.
-extern "C" int lzt_delta_batch_cpu(const void* in, void* out, long long row, const void* valid,
-                                   long long dist, int n_lanes, int encoding, int threads,
-                                   int tile) {
+// X4's delta decode by segments (branch_filters.cu), one lane's blocks at
+// a time in the order `backward` gives.  Each block plays its threads last
+// to first within each phase between two barriers, every read of a phase
+// before the writes of the next: the chunk loads and totals, the chunk
+// scan (each Hillis-Steele step all reads, then all writes; or each warp's
+// shuffle steps, every lane reading the step before's values, then the
+// warp totals), then the block's writes.  The scratch and the shared
+// totals start as 0xA5 bytes, so a read of a byte no launch wrote shows.
+template <int KIND, int RK, bool AL>
+void delta_segments_cpu(const uint8_t* in, uint8_t* out, int64_t L, const int32_t* valid,
+                        int dist, int n_lanes, int threads, int per, bool backward) {
   using namespace lzt::bra;
-  if (dist < 1 || row < 0 || threads < 1 || tile < 4 || (tile & (tile - 1)) ||
-      tile % (4 * threads))
-    return 1;
-  const int W = tile / 4, per = W / threads;
-  const int64_t L = row, d = dist < row ? dist : row;
-  const bool al = (((uintptr_t)in | (uintptr_t)out | (uintptr_t)row) & 3) == 0;
-  std::vector<uint32_t> ring(2 * W), v(W);
-  for (int64_t lane = 0; lane < n_lanes; ++lane) {
-    const uint8_t* lin = (const uint8_t*)in + lane * L;
-    uint8_t* lout = (uint8_t*)out + lane * L;
-    const int64_t end = delta_end(((const int32_t*)valid)[lane], L);
-    std::fill(ring.begin(), ring.end(), 0xA5A5A5A5u);
-    int64_t base = 0;
-    for (; base < end; base += tile) {
-      const int n = L - base < tile ? (int)(L - base) : tile;
-      const int half = (int)((base / tile) & 1) * W;
-      for (int t = threads - 1; t >= 0; --t)
-        for (int k = 0; k < per; ++k)
-          delta_get(ring.data(), half, lin, base, n, t + k * threads, al, W);
-      if (encoding) {
+  const DeltaGeom g = delta_geom(dist, L, threads, per);
+  std::vector<uint32_t> scratch_words((size_t)n_lanes * g.nseg * g.ent / 4, 0xA5A5A5A5u);
+  uint8_t* scratch = reinterpret_cast<uint8_t*>(scratch_words.data());
+  const int warps = (threads + 31) / 32;
+  std::vector<uint32_t> tot(threads), own(threads), incl(threads), add(threads), wsum(warps);
+  std::vector<std::array<uint32_t, 32>> x(threads);
+  const int active = g.nc * g.K;
+  const int64_t nblocks = (int64_t)n_lanes * g.nseg;
+  auto block_at = [&](int64_t b) { return backward ? nblocks - 1 - b : b; };
+  // the chunk loads and totals of block (lane, s), then (where `scan`)
+  // the chunk scan into incl
+  auto load_and_scan = [&](int64_t lane, int64_t s, bool scan) {
+    const int64_t base = s * g.seg;
+    for (int t = threads - 1; t >= 0; --t) {
+      own[t] = 0;
+      const int cu = t % g.nc, k = t / g.nc;
+      if (k < g.K) {
+        const int64_t at0 = delta_chunk_at(g, base, cu, k);
+        delta_chunk_load<KIND, RK, AL>(in + lane * L + at0, g.nc * g.us, L - at0, x[t].data());
+        own[t] = delta_chunk_total<KIND, RK>(x[t].data());
+      }
+    }
+    if (!scan) return;
+    std::fill(tot.begin(), tot.end(), 0xA5A5A5A5u);
+    std::fill(wsum.begin(), wsum.end(), 0xA5A5A5A5u);
+    if (g.nc == 1) {
+      for (int t = threads - 1; t >= 0; --t) incl[t] = own[t];
+      for (int off = 1; off < 32; off <<= 1) {   // each lane reads lane - off's value
         for (int t = threads - 1; t >= 0; --t)
-          for (int k = 0; k < per; ++k) {
-            const int w = t + k * threads;
-            v[w] = delta_encode(ring.data(), half, lin, base, d, w, W);
-          }
-      } else {
-        for (int sh = (int)(d < tile ? d : tile); sh < tile; sh *= 2) {
-          for (int t = threads - 1; t >= 0; --t)
-            for (int k = 0; k < per; ++k) {
-              const int w = t + k * threads;
-              v[w] = delta_pass(ring.data(), half, sh, w, W);
-            }
-          for (int w = 0; w < W; ++w) ring_word(ring.data(), half, w, W) = v[w];
-        }
-        for (int t = threads - 1; t >= 0; --t)
-          for (int k = 0; k < per; ++k) {
-            const int w = t + k * threads;
-            v[w] = delta_carry(ring.data(), half, lout, base, d, w, W);
-            ring_word(ring.data(), half, w, W) = v[w];
-          }
+          add[t] = (t & 31) >= off ? incl[t - off] : 0;
+        for (int t = threads - 1; t >= 0; --t) incl[t] = vadd4(incl[t], add[t]);
       }
       for (int t = threads - 1; t >= 0; --t)
-        for (int k = 0; k < per; ++k) {
-          const int w = t + k * threads;
-          delta_put(lout, lin, base, n, end, w, v[w], al);
-        }
+        if ((t & 31) == 31 || t == threads - 1) wsum[t >> 5] = incl[t];
+      for (int t = threads - 1; t >= 0; --t)
+        incl[t] = vadd4(delta_warp_prefix(wsum.data(), t >> 5), incl[t]);
+      return;
+    }
+    for (int t = threads - 1; t >= 0; --t) tot[t] = own[t];
+    for (int off = g.nc; off < active; off <<= 1) {
+      for (int t = threads - 1; t >= 0; --t)
+        add[t] = t < active ? delta_scan_addend(tot.data(), t, off) : 0;
+      for (int t = threads - 1; t >= 0; --t) tot[t] = vadd4(tot[t], add[t]);
+    }
+    for (int t = threads - 1; t >= 0; --t) incl[t] = tot[t];
+  };
+  for (int64_t b = 0; b < nblocks; ++b) {   // launch 1: reduce
+    const int64_t lane = block_at(b) / g.nseg, s = block_at(b) % g.nseg;
+    if (s * g.seg >= delta_end(valid[lane], L)) continue;
+    load_and_scan(lane, s, true);
+    uint8_t* entry = scratch + (lane * g.nseg + s) * g.ent;
+    for (int t = threads - 1; t >= 0; --t) {
+      if (t / g.nc == g.K - 1) delta_put_total<KIND>(entry, t % g.nc, incl[t]);
+      if (KIND == kDByte && t < g.ent - dist) entry[dist + t] = 0;
+    }
+  }
+  const int words = g.ent / 4;   // launch 2: carries
+  for (int64_t b = 0; b < (int64_t)n_lanes * words; ++b) {
+    const int64_t i = backward ? (int64_t)n_lanes * words - 1 - b : b;
+    const int64_t lane = i / words, end = delta_end(valid[lane], L);
+    delta_carry_words(scratch + lane * g.nseg * g.ent, g.ent, (int)(i % words),
+                      (end + g.seg - 1) / g.seg);
+  }
+  for (int64_t b = 0; b < nblocks; ++b) {   // launch 3: scan
+    const int64_t lane = block_at(b) / g.nseg, s = block_at(b) % g.nseg;
+    const int64_t base = s * g.seg, end = delta_end(valid[lane], L);
+    const bool scan = base < end;
+    load_and_scan(lane, s, scan);
+    const uint8_t* entry = scratch + (lane * g.nseg + s) * g.ent;
+    for (int t = threads - 1; t >= 0; --t) {
+      const int cu = t % g.nc, k = t / g.nc;
+      if (k >= g.K) continue;
+      const uint32_t run =
+          scan ? vadd4(delta_get_total<KIND>(entry, cu), vsub4(incl[t], own[t])) : 0;
+      const int64_t at0 = delta_chunk_at(g, base, cu, k);
+      delta_chunk_store<KIND, RK, AL>(out + lane * L + at0, g.nc * g.us, L - at0, end - at0, run,
+                                      x[t].data());
+    }
+  }
+}
+
+// The byte columns' launches (kDByte, branch_filters.cu), as
+// delta_segments_cpu plays the word columns': each block stages its
+// segment (threads last to first) into shared memory that starts as 0xA5
+// bytes, totals or scans its columns' chunks there, and writes it out.
+template <bool AL>
+void delta_bytes_cpu(const uint8_t* in, uint8_t* out, int64_t L, const int32_t* valid, int dist,
+                     int n_lanes, int threads, int per, bool backward) {
+  using namespace lzt::bra;
+  const DeltaGeom g = delta_geom(dist, L, threads, per);
+  std::vector<uint32_t> scratch_words((size_t)n_lanes * g.nseg * g.ent / 4, 0xA5A5A5A5u);
+  uint8_t* scratch = reinterpret_cast<uint8_t*>(scratch_words.data());
+  std::vector<uint32_t> staged_words((delta_staged_bytes(g) + 3) / 4);
+  uint8_t* staged = reinterpret_cast<uint8_t*>(staged_words.data());
+  std::vector<uint32_t> tot(threads), own(threads), add(threads);
+  const int active = g.nc * g.K, pitch = g.rk * g.nc + 4;
+  const int64_t nblocks = (int64_t)n_lanes * g.nseg;
+  auto block_at = [&](int64_t b) { return backward ? nblocks - 1 - b : b; };
+  auto stage = [&](const uint8_t* row, int64_t base) {
+    std::fill(staged_words.begin(), staged_words.end(), 0xA5A5A5A5u);
+    for (int t = threads - 1; t >= 0; --t)
+      for (int u = t; 16 * u < g.seg; u += threads)
+        delta_stage_unit<AL>(staged, row, base, L, g, u);
+  };
+  auto scan = [&]() {   // the chunk totals and their scan into tot
+    for (int t = threads - 1; t >= 0; --t)
+      own[t] = t < active ? delta_bytes_total(staged + t % g.K * pitch, g.nc, g.rk, t / g.K) : 0;
+    for (int t = threads - 1; t >= 0; --t) tot[t] = own[t];
+    for (int off = 1; off < g.K; off <<= 1) {
+      for (int t = threads - 1; t >= 0; --t)
+        add[t] = t < active ? delta_scan_addend_k(tot.data(), t, t % g.K, off) : 0;
+      for (int t = threads - 1; t >= 0; --t) tot[t] = vadd4(tot[t], add[t]);
+    }
+  };
+  for (int64_t b = 0; b < nblocks; ++b) {   // launch 1: reduce
+    const int64_t lane = block_at(b) / g.nseg, s = block_at(b) % g.nseg;
+    if (s * g.seg >= delta_end(valid[lane], L)) continue;
+    stage(in + lane * L, s * g.seg);
+    scan();
+    uint8_t* entry = scratch + (lane * g.nseg + s) * g.ent;
+    for (int t = threads - 1; t >= 0; --t) {
+      if (t < active && t % g.K == g.K - 1) delta_put_total<kDByte>(entry, t / g.K, tot[t]);
+      if (t < g.ent - dist) entry[dist + t] = 0;
+    }
+  }
+  const int words = g.ent / 4;   // launch 2: carries
+  for (int64_t b = 0; b < (int64_t)n_lanes * words; ++b) {
+    const int64_t i = backward ? (int64_t)n_lanes * words - 1 - b : b;
+    const int64_t lane = i / words, end = delta_end(valid[lane], L);
+    delta_carry_words(scratch + lane * g.nseg * g.ent, g.ent, (int)(i % words),
+                      (end + g.seg - 1) / g.seg);
+  }
+  for (int64_t b = 0; b < nblocks; ++b) {   // launch 3: scan
+    const int64_t lane = block_at(b) / g.nseg, s = block_at(b) % g.nseg;
+    const int64_t base = s * g.seg, end = delta_end(valid[lane], L);
+    stage(in + lane * L, base);
+    if (base < end) {
+      const uint8_t* entry = scratch + (lane * g.nseg + s) * g.ent;
+      scan();
+      for (int t = active - 1; t >= 0; --t) {
+        const int cu = t / g.K, k = t % g.K;
+        delta_bytes_scan(staged + k * pitch, g.nc, g.rk, cu,
+                         end - (base + (int64_t)k * g.rk * g.nc),
+                         vadd4(delta_get_total<kDByte>(entry, cu), vsub4(tot[t], own[t])));
+      }
     }
     for (int t = threads - 1; t >= 0; --t)
-      delta_copy(lout, lin, base < L ? base : L, L, t, threads, al);
+      for (int u = t; 16 * u < g.seg; u += threads)
+        delta_unstage_unit<AL>(out + lane * L, staged, base, L, g, u);
   }
-  return 0;
+}
+
+template <int KIND, bool AL>
+int delta_segments_rk(const uint8_t* in, uint8_t* out, int64_t L, const int32_t* valid,
+                      int dist, int n_lanes, int threads, int per, bool backward) {
+#define LZT_DELTA_RK(n)                                                                     \
+  case n:                                                                                   \
+    delta_segments_cpu<KIND, n, AL>(in, out, L, valid, dist, n_lanes, threads, per, backward); \
+    return 0;
+  switch (per / 4) {
+    LZT_DELTA_RK(1) LZT_DELTA_RK(2) LZT_DELTA_RK(4) LZT_DELTA_RK(8) LZT_DELTA_RK(16)
+    LZT_DELTA_RK(32)
+  }
+#undef LZT_DELTA_RK
+  return 1;
+}
+
+template <int KIND>
+int delta_segments_al(const uint8_t* in, uint8_t* out, int64_t L, const int32_t* valid,
+                      int dist, int n_lanes, int threads, int per, bool backward, bool al) {
+  return al ? delta_segments_rk<KIND, true>(in, out, L, valid, dist, n_lanes, threads, per,
+                                            backward)
+            : delta_segments_rk<KIND, false>(in, out, L, valid, dist, n_lanes, threads, per,
+                                             backward);
+}
+
+// X4's delta (branch_filters.cu) over n_lanes rows of `row` bytes, valid
+// int32 per lane, at `threads` threads a decode block whose threads hold
+// `per` bytes of words or `per` rows of a byte column (per 4, 8, 16, 32 or
+// 64; the kernel's 256 and 64).  Encode plays its units, decode its three launches
+// (delta_segmented) or its column walk, the aligned path where the kernel
+// takes it (buffers and row 16-aligned); `backward`: every launch's blocks
+// (or units, or columns) last to first instead of first to last.
+extern "C" int lzt_delta_batch_cpu(const void* in, void* out, long long row, const void* valid,
+                                   long long dist, int n_lanes, int encoding, int threads,
+                                   int per, int backward) {
+  using namespace lzt::bra;
+  if (dist < 1 || row < 0 || threads < 1 || threads > 4096 ||
+      (per != 4 && per != 8 && per != 16 && per != 32 && per != 64))
+    return 1;
+  if (n_lanes <= 0 || row == 0) return 0;
+  const int64_t L = row, d = dist < row ? dist : row;
+  const uint8_t* i8 = (const uint8_t*)in;
+  uint8_t* o8 = (uint8_t*)out;
+  const int32_t* v = (const int32_t*)valid;
+  const uintptr_t bits = (uintptr_t)in | (uintptr_t)out | (uintptr_t)row;
+  const bool vec = (bits & 15) == 0;
+  if (encoding) {
+    const int64_t units = (L + kUnit - 1) / kUnit;
+    for (int64_t lane = 0; lane < n_lanes; ++lane)
+      for (int64_t j = 0; j < units; ++j) {
+        const int64_t u = backward ? units - 1 - j : j;
+        delta_encode_unit(i8 + lane * L, o8 + lane * L, L, u, d, delta_end(v[lane], L), vec);
+      }
+    return 0;
+  }
+  if (!delta_segmented(d, threads)) {
+    const bool words = (bits & 3) == 0 && d % 4 == 0;
+    const int64_t cols = words ? d / 4 : d;
+    for (int64_t lane = 0; lane < n_lanes; ++lane)
+      for (int64_t j = 0; j < cols; ++j)
+        delta_walk_column(i8 + lane * L, o8 + lane * L, L, delta_end(v[lane], L), d,
+                          backward ? cols - 1 - j : j, words);
+    return 0;
+  }
+  const int di = (int)d;
+  const bool bw = backward != 0;
+  switch (delta_kind(d)) {
+    case kD1: return delta_segments_al<kD1>(i8, o8, L, v, di, n_lanes, threads, per, bw, vec);
+    case kD2: return delta_segments_al<kD2>(i8, o8, L, v, di, n_lanes, threads, per, bw, vec);
+    case kDWord: return delta_segments_al<kDWord>(i8, o8, L, v, di, n_lanes, threads, per, bw, vec);
+    default:
+      if (vec) delta_bytes_cpu<true>(i8, o8, L, v, di, n_lanes, threads, per, bw);
+      else delta_bytes_cpu<false>(i8, o8, L, v, di, n_lanes, threads, per, bw);
+      return 0;
+  }
 }

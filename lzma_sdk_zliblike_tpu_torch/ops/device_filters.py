@@ -17,9 +17,11 @@ each.
   alignment.  Their kernels (``csrc/branch_filters.cu``, pieces in
   ``csrc/branch_filters_lane.cuh``) give a thread 16 bytes of a lane: four
   words, eight Thumb halfwords (each a gather from its neighbours) or an
-  IA64 bundle; delta is a block per lane over 16 KiB tiles in shared
-  memory, decode a per-residue-class prefix sum by byte-vector passes with
-  the sum carried from tile to tile.  The plain versions
+  IA64 bundle; delta encode is the same kind of gather, delta decode
+  (a per-residue-class prefix sum) three launches over segments of whole
+  rows: per-segment class totals, their prefixes along each lane, and the
+  segments' scans from those carries (a column walk for distances over
+  256).  The plain versions
   (``arm_convert_plain`` ... ``delta_plain``) are a few vectorised torch
   operations over the batch; uint32 arithmetic runs in int64 masked to 32
   bits.  The five converters compare positions with ``valid`` as uint32,
@@ -61,14 +63,15 @@ bcj2_info = None
 # jump_w, jump_len, rc, rc_w, rc_len, out_size, out, out_cap, ok, cand,
 # words, words_w, info, info_w, n_lanes, stream) in csrc/device_filters.cu;
 # lzt_armt_batch and lzt_ia64_batch (in, out, row, valid, ip, n_lanes,
-# encoding, stream), lzt_word_filter_batch (kind, the same) and
-# lzt_delta_batch(in, out, row, valid, dist, n_lanes, encoding, stream) in
+# encoding, stream), lzt_word_filter_batch (kind, the same),
+# lzt_delta_batch(in, out, row, valid, dist, n_lanes, encoding, scratch,
+# stream) and lzt_delta_scratch_bytes(row, dist, n_lanes, encoding) in
 # csrc/branch_filters.cu
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _X86_ARGTYPES = [_P, _P, _L, _P, _P, _I, _I, _P]
 _BCJ2_ARGTYPES = [_P, _I, _P] * 4 + [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I,
                                      _P]
-_DELTA_ARGTYPES = [_P, _P, _L, _P, _L, _I, _I, _P]
+_DELTA_ARGTYPES = [_P, _P, _L, _P, _L, _I, _I, _P, _P]
 _WORD_KIND = {"arm": 0, "ppc": 1, "sparc": 2}   # lzt_word_filter_batch
 
 
@@ -203,8 +206,9 @@ def delta_batch(data, valid, *, dist: int, encoding: bool):
     ``L`` or more leaves the rows as they are): encode ``out[i] = data[i] -
     data[i - dist]``, decode ``out[i] = data[i] + out[i - dist]``, for i
     below the lane's ``valid`` (compared signed).  On a CUDA tensor the
-    kernel (a block per lane over tiles in shared memory, decode's sums
-    carried from tile to tile), on a CPU one ``delta_plain``."""
+    kernels (encode a gather; decode per-segment totals, their carries and
+    the segments' scans, over a scratch this call allocates on the current
+    stream), on a CPU one ``delta_plain``."""
     if not isinstance(data, torch.Tensor) or data.dtype != torch.uint8 \
             or data.dim() != 2:
         raise ValueError("data must be a 2-D uint8 tensor [S, L]")
@@ -226,12 +230,16 @@ def delta_batch(data, valid, *, dist: int, encoding: bool):
     v = valid if valid.dtype == torch.int32 else \
         valid.to(torch.int64).clamp(-1, L).to(torch.int32)
     v = v.contiguous()
-    fn = _build.library("branch_filters").lzt_delta_batch
-    fn.restype = ctypes.c_int
-    fn.argtypes = _DELTA_ARGTYPES
+    lib = _build.library("branch_filters")
+    fn, size = lib.lzt_delta_batch, lib.lzt_delta_scratch_bytes
+    fn.restype, fn.argtypes = ctypes.c_int, _DELTA_ARGTYPES
+    size.restype, size.argtypes = ctypes.c_longlong, [_L, _L, _I, _I]
+    d, enc = min(int(dist), L), 1 if encoding else 0
     with torch.cuda.device(dev):
-        rc = fn(src.data_ptr(), out.data_ptr(), L, v.data_ptr(),
-                min(int(dist), L), S, 1 if encoding else 0,
+        scratch = torch.empty(max(size(L, d, S, enc), 1), dtype=torch.uint8,
+                              device=dev)
+        rc = fn(src.data_ptr(), out.data_ptr(), L, v.data_ptr(), d, S, enc,
+                scratch.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"delta kernel launch failed: CUDA error {rc}")

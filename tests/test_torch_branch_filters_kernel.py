@@ -2,29 +2,38 @@
 against the plain versions and the JAX package's functions.
 
 ``csrc/branch_filters.cu`` gives a thread 16 bytes of a lane (four ARM, PPC
-or SPARC words, eight Thumb halfwords gathered from their neighbours, or an
-IA64 bundle) and runs delta as a block per lane over tiles in shared
-memory: encode a gather, decode per-residue-class passes within a tile and
-a carry from the tile before.  The harness (``csrc/cpu_harness.cc``) calls
-the same pieces of ``branch_filters_lane.cuh`` in the kernels' order, each
-lane's units and each tile's threads last to first, at the kernels'
-geometry (and, for delta, at tiles of 64 bytes too, so short rows cross
-hundreds of tiles).  Every row must equal the plain version's and the JAX
-function's, byte for byte over the whole row (tolerance 0).
+or SPARC words, eight Thumb halfwords gathered from their neighbours, an
+IA64 bundle, or delta encode's gather of the bytes ``dist`` before them)
+and runs delta decode as three launches over segments of whole rows:
+per-segment class totals, their carries along each lane, and each
+segment's scan from its carry (a column walk for distances over 256, or
+whose row has more columns than a block has threads).  The harness (``csrc/cpu_harness.cc``) calls the same
+pieces of ``branch_filters_lane.cuh`` in the kernels' order, each lane's
+units and each block's threads last to first, delta's launches with their
+blocks first to last and last to first, at the kernels' geometry and, for
+delta, at small ones too (16 threads of a word each: segments of at most
+64 bytes, so rows cross hundreds of them).  Every row must equal the plain
+version's and the JAX function's, byte for byte over the whole row
+(tolerance 0).
 
 Cases: the salted batch, both directions; the negative-valid batch (valid
 -1, -4096, 2^31 - 1, 8, 0); lanes whose every unit holds a site, at valid
 -1, 0, 3, 4, 5, L and above L and at ip 0, 2^32 - 4 and 2^32 - 16, with
 rows that are not a multiple of 16 (the byte path), odd Thumb rows and IA64
-rows of L % 16 in {0, 1, 15}; delta at distances 1, 2, 3, 4, 7, 16, 255,
-256, 257, L - 1, L and L + 5 on rows of three tiles and more.  Each named
-mutant of the kernels' pieces (a word's valid test off by one, Thumb's
-second half taken from the pair after it, a bundle's valid test off by one,
-SPARC's sign bits, delta's carry dropped between tiles, a decode pass
-reading into the tile before), built with g++ from a changed copy of the
-sources, must fail.  On a card, each kernel must equal its plain version on
-every batch here; that test needs no JAX (the module imports the JAX
-package only in the ``jdf`` fixture), so it runs where JAX is missing.
+rows of L % 16 in {0, 1, 15}; delta at distances 1, 2, 3, 4, 7, 8, 12, 16,
+32, 255, 256, 257, 4096, L - 1, L and L + 5 on rows of three segments and
+more, and at small segments on rows that are no multiple of them. Each
+named mutant of the kernels' pieces (a word's valid test off by one,
+Thumb's second half taken from the pair after it, a bundle's valid test off
+by one, SPARC's sign bits; delta's carries summing only the segment before,
+the chunk scan's first addend dropped, dist 2's odd class summed from the
+even class's carry, the warps' scan leaving out the first warp, the staged
+byte columns' scan dropping its first addend, a segment's carry taken from
+the class before, encode's shifted window a byte off, the column walk's sum
+not carried), built with g++ from a changed copy of the sources, must fail.
+On a card, each kernel must equal its plain version on every batch here;
+that test needs no JAX (the module imports the JAX package only in the
+``jdf`` fixture), so it runs where JAX is missing.
 """
 
 from __future__ import annotations
@@ -58,11 +67,33 @@ FB = _load("lzt_filter_batches", "torch_filter_batches.py")
 H = _load("lzt_torch_cpu_harness", "torch_cpu_harness.py")
 
 EDGE_CASES = [(n, L) for n in CONVERTERS for L in FB.BRANCH_EDGE_LENGTHS[n]]
-DELTA_LENGTHS = [40001, 49152]      # three tiles of 16 KiB and a bit; three
+DELTA_LENGTHS = [40001, 49152]      # three segments of 16 KiB and a bit; three
+# (threads, bytes of words a thread) of delta decode: the kernel's;
+# segments of at most 64 bytes (16 threads); two warps' shuffle scan; the
+# 16-byte loads of 4-word chunks; a block narrower than the byte columns of
+# dist 7 (which walks) but not of dist 3 (one chunk a column)
+DELTA_GEOMETRIES = [(H.DELTA_THREADS, H.DELTA_PER), (16, 4), (64, 8), (8, 16),
+                    (4, 8)]
+# (L, dist) at the small geometries: rows no multiple of a segment, dists
+# that do not divide 16 KiB
+DELTA_SMALL = [(1000, 3), (1003, 5), (4099, 1), (4099, 2), (4099, 6),
+               (4099, 12), (4103, 31), (4103, 32)]
 
 
 def _dists(L):
-    return [1, 2, 3, 4, 7, 16, 255, 256, 257, L - 1, L, L + 5]
+    return [1, 2, 3, 4, 7, 16, 255, 256, 257, L - 1, L, L + 5, 8, 12, 32,
+            4096]
+
+
+def _delta_harness(lib, data, valid, dist, encoding, ref):
+    """Asserts the harness's rows equal ``ref`` at every geometry of
+    ``DELTA_GEOMETRIES``, each launch's blocks in both orders."""
+    for threads, per in DELTA_GEOMETRIES:
+        for backward in (False, True):
+            got = H.delta_batch(lib, data, valid, dist, encoding, threads,
+                                per, backward)
+            assert np.array_equal(got, ref), (encoding, threads, per,
+                                              backward)
 
 
 @pytest.fixture(scope="module")
@@ -152,10 +183,10 @@ def test_ia64_every_template_converts(harness, jdf):
 
 
 @pytest.mark.parametrize("L", DELTA_LENGTHS)
-@pytest.mark.parametrize("dist", range(12))
+@pytest.mark.parametrize("dist", range(16))
 def test_delta(harness, jdf, L, dist):
-    """Both directions at the kernel's geometry and at 64-byte tiles of 4
-    threads, against the plain version and the JAX function; decode
+    """Both directions at the kernel's geometry and the small ones, blocks
+    in both orders, against the plain version and the JAX function; decode
     inverts encode."""
     dist = _dists(L)[dist]
     data, valid = FB.delta_rows(L, seed=dist)
@@ -166,13 +197,31 @@ def test_delta(harness, jdf, L, dist):
                                torch.from_numpy(valid), dist=dist,
                                encoding=encoding).numpy()
         assert np.array_equal(plain, ref), encoding
-        for threads, tile in ((H.DELTA_THREADS, H.DELTA_TILE), (4, 64)):
-            got = H.delta_batch(harness, data, valid, dist, encoding,
-                                threads, tile)
-            assert np.array_equal(got, ref), (encoding, threads, tile)
+        _delta_harness(harness, data, valid, dist, encoding, ref)
     enc = H.delta_batch(harness, data, valid, dist, True)
     assert np.array_equal(H.delta_batch(harness, enc, valid, dist, False),
                           data)
+
+
+@pytest.mark.parametrize("L,dist", DELTA_SMALL)
+def test_delta_small_segments(harness, jdf, L, dist):
+    """Rows of many small segments whose length is no multiple of one, at
+    dists that do not divide 16 KiB, against the JAX function and the plain
+    version; decode inverts encode at every geometry."""
+    data, valid = FB.delta_rows(L, seed=L + dist)
+    for encoding in (True, False):
+        ref = np.asarray(jdf.delta_batch(data, valid, dist=dist,
+                                         encoding=encoding))
+        plain = DF.delta_plain(torch.from_numpy(data),
+                               torch.from_numpy(valid), dist=dist,
+                               encoding=encoding).numpy()
+        assert np.array_equal(plain, ref), encoding
+        _delta_harness(harness, data, valid, dist, encoding, ref)
+    for threads, per in DELTA_GEOMETRIES:
+        enc = H.delta_batch(harness, data, valid, dist, True, threads, per)
+        back = H.delta_batch(harness, enc, valid, dist, False, threads, per,
+                             True)
+        assert np.array_equal(back, data), (threads, per)
 
 
 def test_wrappers_on_cpu_run_the_plain_versions():
@@ -209,18 +258,47 @@ MUTANTS = {
     "ia64_bundle_valid_off_by_one": ("(uint32_t)at + 16 <= valid",
                                      "(uint32_t)at + 16 < valid"),
     "sparc_sign_bits": ("0x3FC00000u : 0u", "0x3F800000u : 0u"),
-    "delta_carry_dropped": ("if (base == 0) return own;", "return own;"),
-    "delta_pass_reads_the_tile_before": (
-        "ring_shifted(ring, half, 4 * w, sh, 0, tw)",
-        "ring_shifted(ring, half, 4 * w, sh, -4 * tw, tw)"),
+    "delta_carry_only_the_segment_before": (
+        "        run = vadd4(run, v[j]);", "        run = v[j];"),
+    "delta_scan_first_addend_dropped": ("return t >= off ? tot[t - off] : 0;",
+                                        "return t > off ? tot[t - off] : 0;"),
+    "delta_dist2_odd_class_from_the_even_sum": (
+        "p1 = dot4(x[i], 0x100u, c1);", "p1 = dot4(x[i], 0x100u, c0);"),
+    "delta_warp_prefix_skips_the_first_warp": (
+        "for (int w = 0; w < warp; ++w)", "for (int w = 1; w < warp; ++w)"),
+    "delta_staged_scan_first_addend_dropped": (
+        "return k >= off ? tot[t - off] : 0;",
+        "return k > off ? tot[t - off] : 0;"),
+    "delta_carry_from_the_class_before": (
+        "  if (KIND == kDByte) return entry[cu];",
+        "  if (KIND == kDByte) return entry[cu ? cu - 1 : 0];"),
+    "delta_encode_window_a_byte_off": ("const int64_t from = at - dist;",
+                                       "const int64_t from = at - dist + 1;"),
+    "delta_walk_sum_not_carried": ("      run = vadd4(run, x[j]);",
+                                   "      run = x[j];"),
 }
 # what each mutant is run on: a converter and its batch, or delta
 MUTANT_CASES = {"word_valid_off_by_one": ("arm", "edge:arm:512"),
                 "armt_second_half_from_next": ("armt", "salted:104"),
                 "ia64_bundle_valid_off_by_one": ("ia64", "edge:ia64:512"),
                 "sparc_sign_bits": ("sparc", "edge:sparc:512"),
-                "delta_carry_dropped": ("delta", 1),
-                "delta_pass_reads_the_tile_before": ("delta", 255)}
+                # delta: (dist, encoding, L)
+                "delta_carry_only_the_segment_before": ("delta", (1, False,
+                                                                  40001)),
+                "delta_scan_first_addend_dropped": ("delta", (12, False,
+                                                              40001)),
+                "delta_dist2_odd_class_from_the_even_sum": ("delta", (
+                    2, False, 40001)),
+                "delta_warp_prefix_skips_the_first_warp": ("delta", (
+                    1, False, 40001)),
+                "delta_staged_scan_first_addend_dropped": ("delta", (
+                    7, False, 49152)),
+                "delta_carry_from_the_class_before": ("delta", (3, False,
+                                                                40001)),
+                "delta_encode_window_a_byte_off": ("delta", (3, True,
+                                                             49152)),
+                "delta_walk_sum_not_carried": ("delta", (4096, False,
+                                                         40001))}
 
 
 @pytest.fixture(scope="module")
@@ -251,11 +329,12 @@ def test_mutant_fails(harness, mutants, name):
     what, case = MUTANT_CASES[name]
     for lib, same in ((harness, True), (mutants[name], False)):
         if what == "delta":
-            data, valid = FB.delta_rows(DELTA_LENGTHS[0], seed=case)
+            dist, encoding, L = case
+            data, valid = FB.delta_rows(L, seed=dist)
             plain = DF.delta_plain(torch.from_numpy(data),
-                                   torch.from_numpy(valid), dist=case,
-                                   encoding=False).numpy()
-            got = H.delta_batch(lib, data, valid, case, False)
+                                   torch.from_numpy(valid), dist=dist,
+                                   encoding=encoding).numpy()
+            got = H.delta_batch(lib, data, valid, dist, encoding)
         else:
             data, valid, ip = _batch(case)
             plain = DF.convert_batch(what, data, valid, ip, encoding=True,

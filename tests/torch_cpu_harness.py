@@ -101,9 +101,9 @@ def bcj2_batch(lib, streams, lens, out_size, threads=BCJ2_THREADS):
     return out, ok != 0, info
 
 
-# X4's delta geometry in csrc/branch_filters.cu: threads of a block, tile
-# bytes
-DELTA_THREADS, DELTA_TILE = 512, 16384
+# X4's delta geometry in csrc/branch_filters.cu: threads of a decode block
+# (kDeltaThreads) and bytes a decode thread holds (kDeltaPer)
+DELTA_THREADS, DELTA_PER = 256, 64
 BRANCH_KIND = {"arm": 0, "ppc": 1, "sparc": 2, "armt": 3, "ia64": 4}
 
 
@@ -125,17 +125,21 @@ def branch_batch(lib, name, data, valid, ip, encoding):
 
 
 def delta_batch(lib, data, valid, dist, encoding, threads=DELTA_THREADS,
-                tile=DELTA_TILE):
-    """``lzt_delta_batch_cpu`` over numpy lanes at a block of ``threads``
-    and tiles of ``tile`` bytes: the [S, L] rows, from 0x5A bytes."""
+                per=DELTA_PER, backward=False):
+    """``lzt_delta_batch_cpu`` over numpy lanes at decode blocks of
+    ``threads`` threads, each holding ``per`` bytes of words or ``per``
+    rows of a byte column (segments of up to threads x per bytes), every
+    launch's blocks first to last or, with ``backward``, last to first: the
+    [S, L] rows, from 0x5A bytes."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.lzt_delta_batch_cpu
-    fn.restype, fn.argtypes = ctypes.c_int, [P, P, L, P, L, I, I, I, I]
+    fn.restype, fn.argtypes = ctypes.c_int, [P, P, L, P, L, I, I, I, I, I]
     d = np.ascontiguousarray(data, np.uint8)
     out = np.full_like(d, 0x5A)
     v = np.ascontiguousarray(valid, np.int32)
     assert fn(d.ctypes.data, out.ctypes.data, d.shape[1], v.ctypes.data,
-              int(dist), d.shape[0], int(encoding), threads, tile) == 0
+              int(dist), d.shape[0], int(encoding), threads, per,
+              int(backward)) == 0
     return out
 
 

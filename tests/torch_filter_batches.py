@@ -148,7 +148,7 @@ def branch_edge_batch(name: str, L: int):
 
 def delta_rows(L: int, seed: int):
     """Seven lanes of ``L`` random bytes for delta, with ``valid`` L, L - 7,
-    13, 0, -1, L + 100 and L // 2 + 3 (inside a middle tile of long rows).
+    13, 0, -1, L + 100 and L // 2 + 3 (inside a middle segment of long rows).
     Returns (data [7, L] uint8, valid int32)."""
     rng = np.random.default_rng(seed)
     data = rng.integers(0, 256, (7, L), dtype=np.uint8)
