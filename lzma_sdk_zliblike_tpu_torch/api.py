@@ -19,6 +19,7 @@ import torch
 
 from .models.lzma.spec import LzmaProps
 from .utils.errors import ProgressAborted, UnsupportedError
+from .utils.trace import TRACE
 
 ENGINES = ("device", "hybrid", "host")
 
@@ -186,8 +187,15 @@ def lzma2_uncompress(stream: bytes, dict_prop: int, *, engine="device",
     package does (abort semantics preserved).
 
     Each group's (lc, lp, pb) comes from the stream: the scheduler launches
-    each props in its own batch.
+    each props in its own batch.  Each call is one root span,
+    ``api.lzma2_uncompress`` (``utils/trace.py``).
     """
+    with TRACE.span("api.lzma2_uncompress", call=True):
+        return _uncompress(stream, dict_prop, engine, device, threads,
+                           progress)
+
+
+def _uncompress(stream, dict_prop, engine, device, threads, progress):
     from .models.lzma2 import framing
 
     if engine not in ENGINES:
@@ -205,7 +213,15 @@ def lzma2_uncompress(stream: bytes, dict_prop: int, *, engine="device",
 
     device = check_device(device)
     framing.decode_dict_prop(dict_prop)  # validate
-    groups = framing.split_groups(framing.scan(stream)[0])
+    with TRACE.span("framing.scan"):
+        chunks = framing.scan(stream)[0]
+    with TRACE.span("framing.split_groups"):
+        groups = framing.split_groups(chunks)
     dec = BatchedLzma2Decoder(shape_for_groups(groups, device=device),
                               device=device)
-    return b"".join(dec.decode_groups(stream, groups))
+    parts = dec.decode_groups(stream, groups)
+    with TRACE.span("api.join"):
+        out = b"".join(parts)
+    with TRACE.span("api.release"):
+        del parts   # a group's bytes each: freeing them is host time too
+    return out

@@ -28,19 +28,27 @@ version, ``group_decode_plain``, a lane-batched lockstep decoder on torch
 tensors.  ``launches`` counts kernel launches.  Beside ``ok`` and
 ``consumed`` both report, per lane, the packets decoded (``iterations``)
 and the range-coder bit calls (``bit_calls``, direct bits included): the
-length of the lane's serial chain.
+length of the lane's serial chain.  These four status rows and a copy of
+``active`` share one ``[5, S]`` tensor, which ``finalize_chunks`` copies
+to the host at once; from it each batch adds its active lanes to the
+counter ``group_decode.lanes`` and its longest chain to
+``group_decode.chain_bit_calls``.  With spans on (``utils/trace.py``) a
+launch is bracketed by timing CUDA events, and K1's time goes to
+``group_decode.kernel_ms`` once the batch has been waited on.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from ..models.lzma import spec as S
 from ..utils.errors import ParamError
+from ..utils.trace import TRACE
 
 FLAG_VALID = 1
 FLAG_RESET = 2
@@ -73,6 +81,11 @@ class GroupBatch:
     bit_calls: torch.Tensor    # int32 [S] range-coder bit calls per lane
     # on the card: recorded on the launch stream after the kernel
     done: torch.cuda.Event | None = None
+    # the four rows above and ``active``, int32 [5, S]
+    status: torch.Tensor | None = None
+    # with spans on, recorded before the kernel (``done`` then times it);
+    # None once its time is counted
+    start: torch.cuda.Event | None = None
 
 
 def check_tensors(specs, dev) -> None:
@@ -123,9 +136,10 @@ def prep_groups(src, pack_ends, unpack_ends, flags, active, *, device):
     ``device``: src uint8 [S, pack_cap], the chunk tables int32 [S, C],
     active int32 [S]."""
     types = (torch.uint8, torch.int32, torch.int32, torch.int32, torch.int32)
-    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device, t)
-                 for a, t in zip((src, pack_ends, unpack_ends, flags, active),
-                                 types))
+    with TRACE.span("group_decode.h2d"):
+        return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device, t)
+                     for a, t in zip((src, pack_ends, unpack_ends, flags,
+                                      active), types))
 
 
 def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
@@ -135,36 +149,61 @@ def submit_groups(src: torch.Tensor, pack_ends: torch.Tensor,
     """Enqueue one decode of multi-chunk groups.
 
     On the card this launches K1 on ``torch.cuda.current_stream()``,
-    records an event after it there (``batch_done``) and returns without
-    synchronising; on the CPU it decodes now with the plain version.
-    Tensors: src uint8 [S, pack_cap]; pack_ends, unpack_ends, flags int32
-    [S, C]; active int32 [S]; all on one device, contiguous.
+    records an event after it there (``batch_done``; with spans on, a
+    timing pair around the launch) and returns without synchronising; on
+    the CPU it decodes now with the plain version.  Tensors: src uint8 [S,
+    pack_cap]; pack_ends, unpack_ends, flags int32 [S, C]; active int32
+    [S]; all on one device, contiguous.
     """
     global launches
     _check(src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb)
-    if src.device.type == "cpu":
-        return GroupBatch(*group_decode_plain(
-            src, pack_ends, unpack_ends, flags, active, dic_cap, lc, lp, pb))
-    from . import _build
-    fn = _build.library("group_decode").lzt_group_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = _LAUNCH_ARGTYPES
-    n = src.shape[0]
-    with torch.cuda.device(src.device):
-        out = torch.zeros((n, dic_cap), dtype=torch.uint8, device=src.device)
-        status = torch.empty((4, n), dtype=torch.int32, device=src.device)
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = fn(src.data_ptr(), src.shape[1], pack_ends.data_ptr(),
-                unpack_ends.data_ptr(), flags.data_ptr(), pack_ends.shape[1],
-                active.data_ptr(), out.data_ptr(), dic_cap,
-                *(row.data_ptr() for row in status), n, lc, lp, pb, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"group_decode kernel launch failed: CUDA error {rc}")
-        done = torch.cuda.Event()
-        done.record()
-    launches += 1
-    return GroupBatch(out, *status, done=done)
+    with TRACE.span("group_decode.launch"):
+        if src.device.type == "cpu":
+            return _submit_plain(src, pack_ends, unpack_ends, flags, active,
+                                 dic_cap, lc, lp, pb)
+        from . import _build
+        fn = _build.library("group_decode").lzt_group_decode
+        fn.restype = ctypes.c_int
+        fn.argtypes = _LAUNCH_ARGTYPES
+        n = src.shape[0]
+        start = None
+        with torch.cuda.device(src.device):
+            out = torch.zeros((n, dic_cap), dtype=torch.uint8,
+                              device=src.device)
+            status = torch.empty((5, n), dtype=torch.int32,
+                                 device=src.device)
+            status[4].copy_(active)
+            stream = torch.cuda.current_stream(src.device).cuda_stream
+            if TRACE.on:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            rc = fn(src.data_ptr(), src.shape[1], pack_ends.data_ptr(),
+                    unpack_ends.data_ptr(), flags.data_ptr(),
+                    pack_ends.shape[1], active.data_ptr(), out.data_ptr(),
+                    dic_cap, *(row.data_ptr() for row in status[:4]), n, lc,
+                    lp, pb, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"group_decode kernel launch failed: CUDA error {rc}")
+            done = torch.cuda.Event(enable_timing=start is not None)
+            done.record()
+        launches += 1
+        return GroupBatch(out, *status[:4], done=done, status=status,
+                          start=start)
+
+
+def _submit_plain(src, pack_ends, unpack_ends, flags, active, dic_cap, lc,
+                  lp, pb) -> GroupBatch:
+    """``submit_groups`` on the CPU: the plain version decodes now (its
+    host time is K1's time with spans on)."""
+    t0 = time.perf_counter_ns()
+    out, *rows = group_decode_plain(src, pack_ends, unpack_ends, flags,
+                                    active, dic_cap, lc, lp, pb)
+    if TRACE.on:
+        TRACE.add("group_decode.kernel_ms",
+                  (time.perf_counter_ns() - t0) * 1e-6)
+    status = torch.stack(rows + [active])
+    return GroupBatch(out, *status[:4], status=status)
 
 
 def submit_groups_sharded(src, pack_ends, unpack_ends, flags, active, *,
@@ -197,6 +236,24 @@ def batch_done(handle: GroupBatch) -> bool:
     return handle.done is None or handle.done.query()
 
 
+def wait_batch(handle: GroupBatch) -> None:
+    """Blocks until the card has finished a submitted batch (span
+    ``group_decode.wait``; nothing to wait for on the CPU)."""
+    with TRACE.span("group_decode.wait"):
+        if handle.done is not None:
+            handle.done.synchronize()
+    _count_kernel_ms(handle)
+
+
+def _count_kernel_ms(handle: GroupBatch) -> None:
+    """Adds a finished, timed launch's CUDA-event time to
+    ``group_decode.kernel_ms``, once."""
+    if handle.start is not None:
+        TRACE.add("group_decode.kernel_ms",
+                  handle.start.elapsed_time(handle.done))
+        handle.start = None
+
+
 def launch_geometry(n_lanes: int, dic_cap: int, lc: int = 3, lp: int = 0,
                     device=None) -> dict:
     """The geometry ``submit_groups`` launches K1 with on the current card:
@@ -218,9 +275,18 @@ def launch_geometry(n_lanes: int, dic_cap: int, lc: int = 3, lp: int = 0,
 def finalize_chunks(handle: GroupBatch, *, dic_cap: int):
     """Materialize a submitted batch on the host: (out, ok, consumed).
 
-    out uint8 [S, dic_cap], ok bool [S], consumed int32 [S], CPU tensors."""
-    out = handle.out[:, :dic_cap].cpu()
-    return out, handle.ok.cpu() != 0, handle.consumed.cpu()
+    out uint8 [S, dic_cap], ok bool [S], consumed int32 [S], CPU tensors.
+    The status rows come over in one copy with the output (span
+    ``group_decode.d2h``); the batch's lanes and longest bit-call chain go
+    to the trace's counters."""
+    with TRACE.span("group_decode.d2h"):
+        out = handle.out[:, :dic_cap].cpu()
+        status = handle.status.cpu()
+    _count_kernel_ms(handle)
+    rows = status.numpy()
+    TRACE.add("group_decode.lanes", int(np.count_nonzero(rows[4])))
+    TRACE.add("group_decode.chain_bit_calls", int(rows[3].max(initial=0)))
+    return out, status[0] != 0, status[1]
 
 
 def submit_chunks(src: torch.Tensor, pack_len: torch.Tensor,

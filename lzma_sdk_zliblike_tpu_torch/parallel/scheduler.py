@@ -109,7 +109,8 @@ class BatchedLzma2Decoder:
     def decode_groups(self, stream: bytes,
                       groups: list[list[framing.Chunk]]) -> list[bytes]:
         """Decode dict-reset groups, preserving order (ordered gather)."""
-        results, by_props = self.route(stream, groups)
+        with TRACE.span("scheduler.route"):
+            results, by_props = self.route(stream, groups)
         for props, idx in by_props.items():
             self._decode_on_device(stream, groups, idx, results, props,
                                    self._multi_k(len(idx)))
@@ -158,10 +159,11 @@ class BatchedLzma2Decoder:
                                         results)
             TRACE.add("scheduler.pallas_multi_batches" if k > 1
                       else "scheduler.pallas_batches")
-            handle = self._submit(
-                *self._assemble(stream, [[groups[gi] for gi in lane]
-                                         for lane in lanes], k),
-                dic_cap=k * self.shape.dic_cap, props=props)
+            with TRACE.span("scheduler.assemble"):
+                arrays = self._assemble(stream, [[groups[gi] for gi in lane]
+                                                 for lane in lanes], k)
+            handle = self._submit(*arrays, dic_cap=k * self.shape.dic_cap,
+                                  props=props)
             pending.append((handle, lanes, k))
         while pending:
             again += self._finalize(*pending.popleft(), groups, stream,
@@ -264,19 +266,23 @@ class BatchedLzma2Decoder:
 
     def _outputs(self, handle: G.GroupBatch, lane_groups, k: int):
         """Per lane of a batch, its groups' bytes in order, or None where
-        the lane failed (``scheduler.lane_retries``)."""
+        the lane failed (``scheduler.lane_retries``).  The wait for the
+        card is its own span, before the copies."""
+        G.wait_batch(handle)
         out, ok, _consumed = G.finalize_chunks(
             handle, dic_cap=k * self.shape.dic_cap)
-        out, ok = out.numpy(), ok.tolist()
-        res = []
-        for li, lg in enumerate(lane_groups):
-            if not ok[li]:
-                TRACE.add("scheduler.lane_retries")
-                res.append(None)
-                continue
-            ends = np.cumsum([0] + [_unpacked(g) for g in lg])
-            res.append([out[li, a:b].tobytes()
-                        for a, b in zip(ends[:-1], ends[1:])])
+        with TRACE.span("scheduler.outputs"):
+            out, ok = out.numpy(), ok.tolist()
+            res = []
+            for li, lg in enumerate(lane_groups):
+                if not ok[li]:
+                    TRACE.add("scheduler.lane_retries")
+                    res.append(None)
+                    continue
+                ends = np.cumsum([0] + [_unpacked(g) for g in lg])
+                res.append([out[li, a:b].tobytes()
+                            for a, b in zip(ends[:-1], ends[1:])])
+            del out     # the batch's host output, freed inside the span
         return res
 
     # -- the hybrid engine's per-batch pair ---------------------------------

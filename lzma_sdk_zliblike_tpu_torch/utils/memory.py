@@ -28,6 +28,8 @@ import os
 
 import torch
 
+from .trace import TRACE
+
 INFLIGHT = 2                 # batches on the device at once
 CPU_BUDGET = 8 << 30         # bytes, when no card is involved
 
@@ -35,13 +37,14 @@ CPU_BUDGET = 8 << 30         # bytes, when no card is involved
 def device_budget(device) -> int:
     """Bytes a decode or encode may hold on ``device`` (env override
     LZT_HBM_BUDGET)."""
-    env = os.environ.get("LZT_HBM_BUDGET")
-    if env:
-        return int(env)
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.mem_get_info(device)[0]
-    return CPU_BUDGET
+    with TRACE.span("memory.device_budget"):
+        env = os.environ.get("LZT_HBM_BUDGET")
+        if env:
+            return int(env)
+        device = torch.device(device)
+        if device.type == "cuda":
+            return torch.cuda.mem_get_info(device)[0]
+        return CPU_BUDGET
 
 
 def decode_batch_hbm_bytes(n_lanes: int, pack_cap: int, dic_cap: int,
@@ -94,19 +97,20 @@ def shape_for_groups(groups, *, device="cuda", hbm_budget: int | None = None,
     (lc, lp, pb): the scheduler gives each its own launch."""
     from ..parallel.scheduler import BatchShape
 
-    groups = [g for g in groups if fits_launcher(g)]
-    dic_cap = _round4k(max((sum(c.unpack_size for c in g) for g in groups),
-                           default=1 << 16))
-    pack_cap = _round4k(max((sum(c.pack_size for c in g) for g in groups),
-                            default=1 << 16))
-    n_lzma = sum(1 for g in groups if any(c.is_lzma for c in g))
-    if hbm_budget is None:
-        hbm_budget = device_budget(device)
-    lanes = min(max(1, n_lzma),
-                pick_lanes(pack_cap, dic_cap, hbm_budget=hbm_budget,
-                           max_lanes=max_lanes))
-    return BatchShape(n_lanes=lanes, pack_cap=pack_cap, dic_cap=dic_cap,
-                      groups_per_lane=1)
+    with TRACE.span("memory.shape_for_groups"):
+        groups = [g for g in groups if fits_launcher(g)]
+        dic_cap = _round4k(max((sum(c.unpack_size for c in g)
+                                for g in groups), default=1 << 16))
+        pack_cap = _round4k(max((sum(c.pack_size for c in g)
+                                 for g in groups), default=1 << 16))
+        n_lzma = sum(1 for g in groups if any(c.is_lzma for c in g))
+        if hbm_budget is None:
+            hbm_budget = device_budget(device)
+        lanes = min(max(1, n_lzma),
+                    pick_lanes(pack_cap, dic_cap, hbm_budget=hbm_budget,
+                               max_lanes=max_lanes))
+        return BatchShape(n_lanes=lanes, pack_cap=pack_cap, dic_cap=dic_cap,
+                          groups_per_lane=1)
 
 
 def encode_batch_bytes(n_lanes: int, op_cap: int, out_cap: int,
