@@ -187,8 +187,10 @@ def lzma2_uncompress(stream: bytes, dict_prop: int, *, engine="device",
     package does (abort semantics preserved).
 
     Each group's (lc, lp, pb) comes from the stream: the scheduler launches
-    each props in its own batch.  Each call is one root span,
-    ``api.lzma2_uncompress`` (``utils/trace.py``).
+    each props in its own batch.  The device engine makes the result once,
+    at the size the chunk headers give, and writes every group into it at
+    its offset (``BatchedLzma2Decoder.decode_into``).  Each call is one root
+    span, ``api.lzma2_uncompress`` (``utils/trace.py``).
     """
     with TRACE.span("api.lzma2_uncompress", call=True):
         return _uncompress(stream, dict_prop, engine, device, threads,
@@ -209,7 +211,7 @@ def _uncompress(stream, dict_prop, engine, device, threads, progress):
         return decode_lzma2_hybrid(stream, dict_prop, threads=threads,
                                    device=device, progress=progress)
     from .parallel.scheduler import BatchedLzma2Decoder
-    from .utils.memory import shape_for_groups
+    from .utils.memory import result_bytes, shape_for_groups
 
     device = check_device(device)
     framing.decode_dict_prop(dict_prop)  # validate
@@ -219,9 +221,8 @@ def _uncompress(stream, dict_prop, engine, device, threads, progress):
         groups = framing.split_groups(chunks)
     dec = BatchedLzma2Decoder(shape_for_groups(groups, device=device),
                               device=device)
-    parts = dec.decode_groups(stream, groups)
+    out, view = result_bytes(sum(c.unpack_size for c in chunks))
+    dec.decode_into(stream, groups, view)
     with TRACE.span("api.join"):
-        out = b"".join(parts)
-    with TRACE.span("api.release"):
-        del parts   # a group's bytes each: freeing them is host time too
+        del view    # every group is in place: the result is whole
     return out

@@ -35,12 +35,22 @@ counter ``group_decode.lanes`` and its longest chain to
 ``group_decode.chain_bit_calls``.  With spans on (``utils/trace.py``) a
 launch is bracketed by timing CUDA events, and K1's time goes to
 ``group_decode.kernel_ms`` once the batch has been waited on.
+
+``finalize_chunks`` either returns the batch's rows as CPU tensors or,
+given a ``result`` and each lane's ``placements``, writes each ok lane's
+used bytes straight to their places in the result.  On the card those bytes
+cross the link once, in pieces of ``PIECE`` bytes through two pinned
+buffers on a copy stream that every call on that card reuses (the status
+rows go the same way first), and the host places one piece while the next
+is copied; ``group_decode.d2h_staged_bytes`` counts the output bytes staged
+so.  On the CPU the rows are placed directly.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -61,6 +71,8 @@ launches = 0   # K1 launches on the card; set to 0 to start a count
 # (``lzt_group_decode`` in csrc/group_decode.cu); the scheduler decodes
 # larger groups on the host.
 CAP_LIMIT = 1 << 31
+
+PIECE = 16 << 20     # bytes per pinned piece of a staged copy out
 
 # lzt_group_decode(src, pack_cap, pack_ends, unpack_ends, flags, n_chunks,
 #                  active, out, dic_cap, ok, consumed, iterations, bit_calls,
@@ -272,21 +284,176 @@ def launch_geometry(n_lanes: int, dic_cap: int, lc: int = 3, lp: int = 0,
             "blocks_per_sm": res[2]}
 
 
-def finalize_chunks(handle: GroupBatch, *, dic_cap: int):
-    """Materialize a submitted batch on the host: (out, ok, consumed).
+def finalize_chunks(handle: GroupBatch, *, dic_cap: int, result=None,
+                    placements=None):
+    """Materialize a submitted batch on the host.
 
-    out uint8 [S, dic_cap], ok bool [S], consumed int32 [S], CPU tensors.
-    The status rows come over in one copy with the output (span
-    ``group_decode.d2h``); the batch's lanes and longest bit-call chain go
-    to the trace's counters."""
+    Without ``result``: (out, ok, consumed), out uint8 [S, dic_cap], ok
+    bool [S], consumed int32 [S], CPU tensors; the status rows come over in
+    one copy with the output.
+
+    With ``result``, a writable uint8 numpy array, and ``placements``, a
+    list per lane of (row offset, length, result offset) within the first
+    ``dic_cap`` bytes of its row: writes those bytes of every ok lane into
+    ``result`` and returns (ok, consumed).  No other byte of the rows, and
+    nothing of a failed lane, is copied.
+
+    The copies are span ``group_decode.d2h``; the batch's lanes and longest
+    bit-call chain go to the trace's counters."""
     with TRACE.span("group_decode.d2h"):
-        out = handle.out[:, :dic_cap].cpu()
-        status = handle.status.cpu()
+        if result is None:
+            out = handle.out[:, :dic_cap].cpu()
+            status = handle.status.cpu()
+        else:
+            status = torch.from_numpy(_place(handle, dic_cap, result,
+                                             placements))
     _count_kernel_ms(handle)
     rows = status.numpy()
     TRACE.add("group_decode.lanes", int(np.count_nonzero(rows[4])))
     TRACE.add("group_decode.chain_bit_calls", int(rows[3].max(initial=0)))
-    return out, status[0] != 0, status[1]
+    if result is None:
+        return out, status[0] != 0, status[1]
+    return status[0] != 0, status[1]
+
+
+def _place(handle: GroupBatch, dic_cap: int, result: np.ndarray,
+           placements) -> np.ndarray:
+    """``finalize_chunks``' placement: the status rows, int32 [5, S] on the
+    host, once each ok lane's placements are written into ``result``."""
+    out = handle.out
+    n_lanes, width = out.shape
+    if not 0 < dic_cap <= width or len(placements) > n_lanes:
+        raise ValueError(f"placements of {len(placements)} lanes within "
+                         f"{dic_cap} bytes for rows [{n_lanes}, {width}]")
+    if out.device.type == "cuda":
+        rows = np.empty((5, n_lanes), np.int32)
+        staging = _staging(out.device)
+        with staging.lock:
+            staging.copy(handle.status.view(torch.uint8).view(-1),
+                         [(0, rows.nbytes, 0)], rows.view(np.uint8).ravel(),
+                         after=handle.done)
+            segments = _segments(rows[0], placements, width, dic_cap)
+            TRACE.add("group_decode.d2h_staged_bytes",
+                      staging.copy(out.view(-1), segments, result,
+                                   after=handle.done))
+        return rows
+    rows = handle.status.numpy()
+    flat = out.view(-1).numpy()
+    for src, n, dst in _segments(rows[0], placements, width, dic_cap):
+        result[dst:dst + n] = flat[src:src + n]
+    return rows
+
+
+def _segments(ok, placements, width: int, dic_cap: int):
+    """(offset in the flat rows, length, result offset) of each placement
+    of an ok lane, in row order."""
+    segments = []
+    for li, lane in enumerate(placements):
+        if not ok[li]:
+            continue
+        for at, n, dst in lane:
+            if at < 0 or n < 0 or at + n > dic_cap or dst < 0:
+                raise ValueError(f"placement ({at}, {n}, {dst}) of lane {li} "
+                                 f"outside its {dic_cap} bytes")
+            if n:
+                segments.append((li * width + at, n, dst))
+    return segments
+
+
+def _piece_plan(segments, piece: int):
+    """Byte segments (source offset, length, destination offset) laid back
+    to back in pieces of ``piece`` bytes: a list per piece of (source
+    offset, piece offset, length, destination offset), a segment that
+    crosses a piece's end cut in two."""
+    pieces, parts, fill = [], [], 0
+    for src, n, dst in segments:
+        while n:
+            m = min(n, piece - fill)
+            parts.append((src, fill, m, dst))
+            src, dst, n, fill = src + m, dst + m, n - m, fill + m
+            if fill == piece:
+                pieces.append(parts)
+                parts, fill = [], 0
+    if parts:
+        pieces.append(parts)
+    return pieces
+
+
+def _runs(parts, at: int):
+    """[start, piece offset, length] of the runs of a piece's ``parts``
+    that are contiguous at field ``at`` (0 the source, 3 the destination;
+    in the piece they always are)."""
+    runs: list[list[int]] = []
+    for part in parts:
+        if runs and runs[-1][0] + runs[-1][2] == part[at]:
+            runs[-1][2] += part[2]
+        else:
+            runs.append([part[at], part[1], part[2]])
+    return runs
+
+
+class _Staging:
+    """Two pinned host pieces of ``PIECE`` bytes and a copy stream on one
+    card, reused by every staged copy there, one at a time (``lock``)."""
+
+    def __init__(self, device: torch.device):
+        self.lock = threading.Lock()
+        self.stream = torch.cuda.Stream(device)
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self.host: list[torch.Tensor] = []
+
+    def _pieces(self) -> list[torch.Tensor]:
+        if not self.host or self.host[0].numel() != PIECE:
+            self.host = [torch.empty(PIECE, dtype=torch.uint8,
+                                     pin_memory=True) for _ in range(2)]
+        return self.host
+
+    def copy(self, src: torch.Tensor, segments, dst: np.ndarray, *,
+             after: torch.cuda.Event | None) -> int:
+        """Copies ``segments`` (source offset, length, destination offset)
+        of the flat uint8 card tensor ``src`` into the host array ``dst``,
+        once the card has passed ``after``: piece k + 1 crosses the link on
+        the copy stream while the host places piece k.  Returns the bytes
+        copied."""
+        host = self._pieces()
+        views = [h.numpy() for h in host]
+        pieces = _piece_plan(segments, PIECE)
+        stream = self.stream
+
+        def send(k: int) -> None:
+            b = k & 1
+            with torch.cuda.stream(stream):
+                for at, off, n in _runs(pieces[k], 0):
+                    host[b][off:off + n].copy_(src[at:at + n],
+                                               non_blocking=True)
+            self.copied[b].record(stream)
+
+        try:
+            if after is not None:
+                stream.wait_event(after)
+            for k in range(min(2, len(pieces))):
+                send(k)
+            for k, parts in enumerate(pieces):
+                self.copied[k & 1].synchronize()
+                view = views[k & 1]
+                for at, off, n in _runs(parts, 3):
+                    dst[at:at + n] = view[off:off + n]
+                if k + 2 < len(pieces):
+                    send(k + 2)
+        finally:
+            stream.synchronize()    # nothing left in flight on a raise
+        return sum(n for _, n, _ in segments)
+
+
+_STAGING: dict[int, _Staging] = {}     # card index -> its pieces
+_STAGING_LOCK = threading.Lock()
+
+
+def _staging(device: torch.device) -> _Staging:
+    with _STAGING_LOCK:
+        if device.index not in _STAGING:
+            _STAGING[device.index] = _Staging(device)
+        return _STAGING[device.index]
 
 
 def submit_chunks(src: torch.Tensor, pack_len: torch.Tensor,

@@ -3,8 +3,9 @@
 The reference's MtCoder splits work into blocks decoded by a ring of threads
 with token passing for ordered output (``MtCoder.c:185-224``).  Here
 dict-reset *groups* are gathered into batches, every lane of the CUDA kernel
-decodes one or more whole groups, and the ordered write ring becomes a
-host-side concat keyed by group index.
+decodes one or more whole groups, and the ordered write ring becomes one
+result buffer in which each group is written at its offset, the prefix sum
+of the groups' unpacked sizes (``decode_into``).
 
 Eligibility: a group runs on the device when all its LZMA chunks share one
 (lc, lp, pb) with lc + lp <= 4, its copy chunks are well formed, a state
@@ -32,7 +33,7 @@ import torch
 from ..models.lzma2 import framing
 from ..ops import group_decode as G
 from ..utils.errors import DataError
-from ..utils.memory import INFLIGHT, fits_launcher
+from ..utils.memory import INFLIGHT, fits_launcher, result_bytes
 from ..utils.trace import TRACE
 from .host_pool import decode_group_native
 
@@ -104,17 +105,68 @@ class BatchedLzma2Decoder:
         framing.decode_dict_prop(dict_prop)  # validate
         chunks, _ = framing.scan(stream)
         groups = framing.split_groups(chunks)
-        return b"".join(self.decode_groups(stream, groups))
+        out, view = result_bytes(sum(_unpacked(g) for g in groups))
+        self.decode_into(stream, groups, view)
+        return out
 
     def decode_groups(self, stream: bytes,
                       groups: list[list[framing.Chunk]]) -> list[bytes]:
-        """Decode dict-reset groups, preserving order (ordered gather)."""
+        """Decode dict-reset groups: each group's bytes, in order."""
+        out, view = result_bytes(sum(_unpacked(g) for g in groups))
+        self.decode_into(stream, groups, view)
+        ends = np.cumsum([0] + [_unpacked(g) for g in groups]).tolist()
+        return [out[a:b] for a, b in zip(ends[:-1], ends[1:])]
+
+    def decode_into(self, stream: bytes, groups: list[list[framing.Chunk]],
+                    result: np.ndarray) -> None:
+        """Decode dict-reset groups into ``result`` (writable uint8, their
+        unpacked size in all), each group at the prefix sum of the sizes
+        before it: a card's group from its lane's row, a copy-only group
+        from the stream's bytes, another group from the host decoder's.  No
+        group's bytes become an object of their own on the way."""
+        offs = np.cumsum([0] + [_unpacked(g) for g in groups]).tolist()
+        if len(result) != offs[-1]:
+            raise ValueError(f"a result of {len(result)} bytes for groups "
+                             f"of {offs[-1]}")
         with TRACE.span("scheduler.route"):
-            results, by_props = self.route(stream, groups)
+            copies, natives, by_props = self._sort(groups)
+            decoded = []
+            for gi in natives:
+                TRACE.add("scheduler.host_fallback_groups")
+                decoded.append((gi, decode_group_native(
+                    stream, groups[gi], _HOST_DICT_PROP)))
+        if decoded or copies:
+            with TRACE.span("scheduler.outputs"):
+                src = np.frombuffer(stream, np.uint8)
+                for gi in copies:
+                    at = offs[gi]
+                    for c in groups[gi]:
+                        result[at:at + c.pack_size] = \
+                            src[c.data_off:c.data_off + c.pack_size]
+                        at += c.pack_size
+                for gi, part in decoded:
+                    result[offs[gi]:offs[gi + 1]] = np.frombuffer(part,
+                                                                  np.uint8)
+                del decoded
         for props, idx in by_props.items():
-            self._decode_on_device(stream, groups, idx, results, props,
-                                   self._multi_k(len(idx)))
-        return results  # type: ignore[return-value]
+            self._decode_on_device(stream, groups, idx, props,
+                                   self._multi_k(len(idx)), offs, result)
+
+    def _sort(self, groups: list[list[framing.Chunk]]):
+        """``(copies, natives, by_props)``: the copy-only groups, the
+        groups the card cannot take, and the card's groups per (lc, lp,
+        pb), each in group order."""
+        copies: list[int] = []
+        natives: list[int] = []
+        by_props: dict[tuple[int, int, int], list[int]] = {}
+        for gi, g in enumerate(groups):
+            if all(not c.is_lzma for c in g):
+                copies.append(gi)
+            elif (props := self._eligible(g)) is not None:
+                by_props.setdefault(props, []).append(gi)
+            else:
+                natives.append(gi)
+        return copies, natives, by_props
 
     def route(self, stream: bytes, groups: list[list[framing.Chunk]], *,
               host: bool = True):
@@ -126,18 +178,16 @@ class BatchedLzma2Decoder:
         another process and stay None.  ``by_props`` lists the indices of
         the card's groups per (lc, lp, pb), in group order."""
         results: list[bytes | None] = [None] * len(groups)
-        by_props: dict[tuple[int, int, int], list[int]] = {}
-        for gi, g in enumerate(groups):
-            if all(not c.is_lzma for c in g):
-                if host:
-                    results[gi] = b"".join(
-                        stream[c.data_off:c.data_off + c.pack_size]
-                        for c in g)
-            elif (props := self._eligible(g)) is not None:
-                by_props.setdefault(props, []).append(gi)
-            elif host:
+        copies, natives, by_props = self._sort(groups)
+        if host:
+            for gi in copies:
+                results[gi] = b"".join(
+                    stream[c.data_off:c.data_off + c.pack_size]
+                    for c in groups[gi])
+            for gi in natives:
                 TRACE.add("scheduler.host_fallback_groups")
-                results[gi] = decode_group_native(stream, g, _HOST_DICT_PROP)
+                results[gi] = decode_group_native(stream, groups[gi],
+                                                  _HOST_DICT_PROP)
         return results, by_props
 
     def _multi_k(self, n_groups: int) -> int:
@@ -147,16 +197,18 @@ class BatchedLzma2Decoder:
         return max(1, min(s.groups_per_lane, -(-n_groups // s.n_lanes),
                           (G.CAP_LIMIT - 1) // max(s.pack_cap, s.dic_cap)))
 
-    def _decode_on_device(self, stream, groups, idx, results, props, k: int):
-        """Decode groups ``idx`` of one (lc, lp, pb) in batches of lanes of
-        up to k groups, keeping at most INFLIGHT batches on the device: the
-        card decodes one batch while the host assembles the next."""
+    def _decode_on_device(self, stream, groups, idx, props, k: int, offs,
+                          result):
+        """Decode groups ``idx`` of one (lc, lp, pb) into ``result`` at
+        ``offs`` in batches of lanes of up to k groups, keeping at most
+        INFLIGHT batches on the device: the card decodes one batch while
+        the host assembles the next."""
         pending: collections.deque = collections.deque()
         again: list[int] = []
         for lanes in self._pack_lanes(groups, idx, k):
             if len(pending) == INFLIGHT:
                 again += self._finalize(*pending.popleft(), groups, stream,
-                                        results)
+                                        offs, result)
             TRACE.add("scheduler.pallas_multi_batches" if k > 1
                       else "scheduler.pallas_batches")
             with TRACE.span("scheduler.assemble"):
@@ -166,10 +218,11 @@ class BatchedLzma2Decoder:
                                   props=props)
             pending.append((handle, lanes, k))
         while pending:
-            again += self._finalize(*pending.popleft(), groups, stream,
-                                    results)
+            again += self._finalize(*pending.popleft(), groups, stream, offs,
+                                    result)
         if again:   # groups of failed multi-group lanes: one per lane now
-            self._decode_on_device(stream, groups, again, results, props, 1)
+            self._decode_on_device(stream, groups, again, props, 1, offs,
+                                   result)
 
     def _pack_lanes(self, groups, idx, k: int):
         """Batches of lanes, each lane a list of group indices within
@@ -243,25 +296,37 @@ class BatchedLzma2Decoder:
             dic_cap=dic_cap, lc=lc, lp=lp, pb=pb)
 
     def _finalize(self, handle: G.GroupBatch, lanes, k: int, groups,
-                  stream: bytes, results) -> list[int]:
-        """Copy a batch's lanes into ``results``.  Returns the groups of
-        failed lanes of several groups, to decode again one group per lane;
-        a failed lane of one group raises.
+                  stream: bytes, offs, result) -> list[int]:
+        """Place a batch's ok lanes in ``result``, each group at its offset
+        in ``offs``.  Returns the groups of failed lanes of several groups,
+        to decode again one group per lane; a failed lane of one group
+        raises.
 
         The reference's MtCoder poisons the whole ring on any thread error
         (``MtCoder.c:226-247``); here a bad group fails by itself,
         identified by its group index, and the other lanes are kept."""
+        G.wait_batch(handle)
+        placements = []
+        for lane in lanes:
+            at, placed = 0, []
+            for gi in lane:
+                n = offs[gi + 1] - offs[gi]
+                placed.append((at, n, offs[gi]))
+                at += n
+            placements.append(placed)
+        ok, _consumed = G.finalize_chunks(
+            handle, dic_cap=k * self.shape.dic_cap, result=result,
+            placements=placements)
         again: list[int] = []
-        outs = self._outputs(handle, [[groups[gi] for gi in lane]
-                                      for lane in lanes], k)
-        for lane, parts in zip(lanes, outs):
-            if parts is None:
+        with TRACE.span("scheduler.outputs"):
+            for lane, good in zip(lanes, ok.tolist()):
+                if good:
+                    continue
+                TRACE.add("scheduler.lane_retries")
                 if len(lane) > 1:
                     again += lane
                     continue
                 self._raise_failed(stream, groups[lane[0]], lane[0])
-            for gi, part in zip(lane, parts):
-                results[gi] = part
         return again
 
     def _outputs(self, handle: G.GroupBatch, lane_groups, k: int):

@@ -20,18 +20,55 @@ An encode batch (kernel K2) holds each lane's op words, chunk table, body
 buffer and the kernel's scratch (the coder's stream and a body slot per
 chunk, ``ops/range_encode.scratch_lane_bytes``); ``encode_lanes`` sizes it
 by the same budget, with the same ``INFLIGHT``.
+
+A decode's host result is one ``bytes`` object, made uninitialised at its
+final size and filled in place before the caller sees it
+(``result_bytes``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 
+import numpy as np
 import torch
 
 from .trace import TRACE
 
 INFLIGHT = 2                 # batches on the device at once
 CPU_BUDGET = 8 << 30         # bytes, when no card is involved
+
+
+_new_bytes = ctypes.pythonapi.PyBytes_FromStringAndSize
+_new_bytes.restype = ctypes.py_object
+_new_bytes.argtypes = (ctypes.c_void_p, ctypes.c_ssize_t)
+_bytes_data = ctypes.pythonapi.PyBytes_AsString
+_bytes_data.restype = ctypes.c_void_p
+_bytes_data.argtypes = (ctypes.py_object,)
+
+
+class _Writable:
+    """A numpy view's owner: ``n`` bytes at ``address``, kept alive by
+    ``owner``."""
+
+    def __init__(self, owner, address: int, n: int):
+        self.owner = owner
+        self.__array_interface__ = {"data": (address, False), "shape": (n,),
+                                    "typestr": "|u1", "version": 3}
+
+
+def result_bytes(n: int) -> tuple[bytes, np.ndarray]:
+    """A new, uninitialised ``bytes`` of ``n`` bytes (as the stdlib's
+    ``zlib`` and ``lzma`` make their results) and a writable uint8 view of
+    it, which keeps it alive.  Fill the whole view before the ``bytes``
+    reaches anything else, and drop the view once it is filled."""
+    if n < 0:
+        raise ValueError(f"a result of {n} bytes")
+    out = _new_bytes(None, n)
+    if n == 0:      # the shared empty bytes: nothing to write
+        return out, np.empty(0, np.uint8)
+    return out, np.asarray(_Writable(out, _bytes_data(out), n))
 
 
 def device_budget(device) -> int:

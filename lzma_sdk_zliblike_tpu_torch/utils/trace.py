@@ -50,24 +50,33 @@ the one above it in this list or of the root:
   grouped;
 * ``memory.shape_for_groups`` and its child ``memory.device_budget`` (the
   ``torch.cuda.mem_get_info`` query);
-* ``scheduler.route`` -- copy-only and host-fallback groups set apart;
+* ``scheduler.route`` -- copy-only and host-fallback groups set apart,
+  the host-fallback groups decoded;
+* ``scheduler.outputs`` -- only where there are such groups: the copy-only
+  groups' stream bytes and the host decoder's bytes written at their
+  offsets in the call's result;
 * a batch's ``scheduler.assemble`` (its host arrays), ``group_decode.h2d``
   (``prep_groups``' copies to the card), ``group_decode.launch``
   (``submit_groups``: the output's allocation and K1's launch; the plain
   version's decode on the CPU), ``group_decode.wait`` (the host waiting
-  for the batch's event), ``group_decode.d2h`` (``finalize_chunks``' two
-  copies: the output and the status rows) and ``scheduler.outputs`` (the
-  per-group slices copied into ``bytes``, then the host output freed);
-* ``api.join`` -- the ordered join; ``api.release`` -- the per-group
-  parts freed.
+  for the batch's event), ``group_decode.d2h`` (``finalize_chunks``: the
+  status rows, then each ok lane's used bytes copied out and written at
+  their offsets in the result, piece by piece through the pinned pieces
+  on the card, straight from the rows on the CPU) and
+  ``scheduler.outputs`` (the lanes' status checks and the retry
+  bookkeeping);
+* ``api.join`` -- the result finished: its writable view released.
 
 Decode counters: ``group_decode.lanes`` (the active lanes of each batch,
 summed), ``group_decode.chain_bit_calls`` (each batch's most range-coder
 bit calls in one lane, summed: the serial chain K1 walked) and, with spans
 on, ``group_decode.kernel_ms`` (K1's time from CUDA events around each
 launch, summed; the plain version's host time on the CPU); and
-``scheduler.host_fallback_groups``, ``scheduler.lane_retries``,
-``scheduler.pallas_batches`` / ``pallas_multi_batches``.
+``group_decode.d2h_staged_bytes`` (the output bytes that crossed the link
+through the pinned pieces: every device group's bytes on the card, none on
+the CPU) and ``scheduler.host_fallback_groups``,
+``scheduler.lane_retries``, ``scheduler.pallas_batches`` /
+``pallas_multi_batches``.
 """
 
 from __future__ import annotations

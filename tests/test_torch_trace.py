@@ -25,8 +25,7 @@ DECODE_STEPS = ["framing.scan", "framing.split_groups",
                 "memory.shape_for_groups", "scheduler.route",
                 "scheduler.assemble", "group_decode.h2d",
                 "group_decode.launch", "group_decode.wait",
-                "group_decode.d2h", "scheduler.outputs", "api.join",
-                "api.release"]
+                "group_decode.d2h", "scheduler.outputs", "api.join"]
 
 
 def _stream(n_groups=2, size=1500):
