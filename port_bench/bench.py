@@ -2,15 +2,18 @@
 reference, and the result line.
 
 Set-up reads (or, in a new checkout, builds) the configuration's block
-pool, joins the files the seed sends, imports the port and decodes a
-warm-up file (the first chunk of each block of the first file), which
-builds and loads the kernels.  The window then sends the files in turn,
-one call at a time, through ``lzma2_uncompress(stream, dict_prop,
-engine="device", device="cuda")`` until ``--seconds`` have passed; it ends
-when that call returns, so every call in it is whole.  With ``--trace 1``
-the wrappers of ``spans.py`` and a profiler session cover the window.
-Once it has closed, the outputs of a sample of its calls, drawn from the
-seed, are compared with the reference (``reference.py``).
+pool, makes the images of the files the seed sends, imports the port and
+decodes a warm-up image, which builds and loads the kernels.  What an
+image is, the warm-up and the port's call are the configuration's entry
+point's (``entries/<entry>.py``; ``lzma2_stream``: the blocks' payloads
+joined as one stream, the first chunk of each block of the first file,
+``lzma2_uncompress(stream, dict_prop, engine="device", device="cuda")``).
+The window then sends the images in turn, one call at a time, until
+``--seconds`` have passed; it ends when that call returns, so every call
+in it is whole.  With ``--trace 1`` the wrappers of ``spans.py`` and a
+profiler session cover the window.  Once it has closed, the outputs of a
+sample of its calls, drawn from the seed, are compared with the reference
+(``reference.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import subprocess
 import sys
 import time
 
-from . import lzma2_chunks, reference, spec, traffic
+from . import reference, spec, traffic
 from . import pool as P
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "lzma_sdk_zliblike_tpu")
@@ -36,39 +39,13 @@ def forbidden_modules(names) -> list[str]:
     return sorted(n for n in names if n.split(".", 1)[0] in FORBIDDEN)
 
 
-class PortDecoder:
-    """The system under test: the port's ``lzma2_uncompress`` on K1."""
-
-    def __init__(self, device: str):
-        from lzma_sdk_zliblike_tpu_torch import api
-        from lzma_sdk_zliblike_tpu_torch.ops import group_decode
-        from lzma_sdk_zliblike_tpu_torch.utils.trace import TRACE
-        self.device = device
-        self._api, self._G, self._trace = api, group_decode, TRACE
-
-    def __call__(self, stream: bytes, dict_prop: int) -> bytes:
-        return self._api.lzma2_uncompress(stream, dict_prop, engine="device",
-                                          device=self.device)
-
-    def reset_counters(self) -> None:
-        self._G.launches = 0
-        self._trace.reset()
-
-    def counters(self) -> dict:
-        snap = self._trace.snapshot()
-        return {"k1_launches": self._G.launches,
-                "host_fallback_groups": snap.get(
-                    "scheduler.host_fallback_groups", 0),
-                "lane_retries": snap.get("scheduler.lane_retries", 0)}
-
-
 @dataclasses.dataclass
 class Call:
     """One call of the window."""
 
     file: int            # index into the run's files
     out_bytes: int       # 0 where the call raised
-    packed: int          # the file's chunk bodies (from its headers)
+    packed: int          # the image's chunk bodies (from their headers)
     unpacked: int
     seconds: float
     error: str | None = None
@@ -86,8 +63,9 @@ class Run:
 
 
 def _files(cell, seed: int, cache_dir: str, workers, phases: dict):
-    """(files, streams, warm-up stream, pool) of a run; the seconds of each
+    """(files, images, warm-up image, pool) of a run; the seconds of each
     step go into ``phases``."""
+    entry = spec.entry(cell.entry)
     t = time.perf_counter()
     files = traffic.files(cell.traffic, seed, cell.config["block_size"])
     pool = P.Pool(cell.config, cache_dir)
@@ -96,10 +74,12 @@ def _files(cell, seed: int, cache_dir: str, workers, phases: dict):
     phases["pool_build_s"], t = _lap(t)
     payloads = {b: pool.payload(b) for b in used}
     phases["pool_read_s"], t = _lap(t)
-    streams = [P.join(payloads[b] for b in f) for f in files]
-    warm = P.join(lzma2_chunks.first_chunk(payloads[b]) for b in files[0])
+    if hasattr(entry, "prepare"):
+        phases["entry_built_blocks"] = len(entry.prepare(pool, used, workers))
+        phases["entry_build_s"], t = _lap(t)
+    images, warm = entry.images(pool, files, payloads)
     phases["join_s"], t = _lap(t)
-    return files, streams, warm, pool
+    return files, images, warm, pool
 
 
 def _lap(t: float) -> tuple[float, float]:
@@ -112,26 +92,26 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, t0: float,
              workers: int | None = None) -> dict:
     """Runs ``cell`` and returns its result (the keys of the result line,
     ``checks`` last); prints the port's counters and the calls' times on
-    earlier lines.  ``decoder`` stands in for the port's
-    ``lzma2_uncompress`` (the control, the tests' faults)."""
+    earlier lines.  ``decoder``, called with an image, stands in for the
+    entry point's ``Port`` (the control, the tests' faults)."""
     import torch
     on_card = device == "cuda"
+    entry = spec.entry(cell.entry)
     phases = {"start_s": time.perf_counter() - t0}
-    files, streams, warm, pool = _files(cell, seed, cache_dir, workers,
+    files, images, warm, pool = _files(cell, seed, cache_dir, workers,
                                         phases)
     t = time.perf_counter()
-    work = [lzma2_chunks.work_bytes(s) for s in streams]
-    prop = P.dict_prop(cell.config["dict_size"])
+    work = [entry.work(s) for s in images]
     expect_len = [sum(size for _, size in f) for f in files]
-    decoder = decoder or PortDecoder(device)
+    decoder = decoder or entry.Port(cell.config, device)
     phases["port_import_s"], t = _lap(t)
     with contextlib.ExitStack() as stack:
         spans = None
         if trace:
             from . import profiling
             from . import spans as S
-            spans = stack.enter_context(S.Spans())
-        decoder(warm, prop)
+            spans = stack.enter_context(S.Spans(entry.TIMED))
+        decoder(warm)
         if on_card:
             torch.cuda.synchronize()
         if spans:
@@ -144,13 +124,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, t0: float,
         sample = traffic.Sample(cell.traffic["check_calls"], seed)
         with (profiling.session(torch) if trace
               else contextlib.nullcontext()) as prof:
-            calls, window_s = _window_calls(decoder, streams, work, prop,
-                                            seconds, sample, spans, torch)
+            calls, window_s = _window_calls(decoder, images, work,
+                                            seconds, sample, spans, torch,
+                                            f"call.{entry.CALL}")
         if on_card:
             torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     counters = decoder.counters() if hasattr(decoder, "counters") else {}
-    del streams
+    del images
     if on_card:
         torch.cuda.empty_cache()
     run = Run(setup_s, window_s, calls, spans.calls if spans else None)
@@ -194,9 +175,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, t0: float,
     return result
 
 
-def _window_calls(decoder, streams, work, prop, seconds, sample, spans,
-                  torch):
-    """The measured window: calls in turn until ``seconds`` have passed."""
+def _window_calls(decoder, images, work, seconds, sample, spans, torch,
+                  label):
+    """The measured window: calls in turn until ``seconds`` have passed,
+    each in a profiler range ``label``."""
     record_function = (torch.profiler.record_function if spans
                        else lambda name: contextlib.nullcontext())
     calls = []
@@ -204,14 +186,14 @@ def _window_calls(decoder, streams, work, prop, seconds, sample, spans,
         start = time.perf_counter()
         i = 0
         while True:
-            f = i % len(streams)
+            f = i % len(images)
             if spans:
                 spans.begin_call()
             t = time.perf_counter()
             error = out = None
             try:
-                with record_function("call.lzma2_uncompress"):
-                    out = decoder(streams[f], prop)
+                with record_function(label):
+                    out = decoder(images[f])
             except Exception as e:  # a call that raises is a failed call
                 error = f"{type(e).__name__}: {e}"
             end = time.perf_counter()

@@ -1,7 +1,7 @@
 """join_ms: mean ms a call spends in the port's own spans
-``scheduler.outputs`` (each group's slice copied into ``bytes``, the
-batch's host output freed) and ``api.join`` (the ordered join) (the traced
-run; ``program_spans.py``)."""
+``scheduler.outputs`` (the lanes' status checks and retries, the
+copy-only and host groups placed) and ``api.join`` (the result's view
+released) (the traced run; ``program_spans.py``)."""
 
 from port_bench import program_spans
 

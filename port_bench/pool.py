@@ -122,6 +122,23 @@ def _build_block(config: dict, block: tuple, folder: str) -> tuple:
     return block
 
 
+def build_all(fn, jobs: list, workers: int | None = None) -> None:
+    """Runs ``fn(*job)`` for each of ``jobs`` on ``workers`` processes
+    (None: one a core; 1: in this process) and waits for every one."""
+    if workers is None:
+        workers = len(os.sched_getaffinity(0))
+    workers = max(1, min(workers, len(jobs)))
+    if workers == 1:
+        for job in jobs:
+            fn(*job)
+        return
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers,
+                                                mp_context=ctx) as ex:
+        for fut in [ex.submit(fn, *job) for job in jobs]:
+            fut.result()
+
+
 class Pool:
     """The cached blocks of one configuration under ``cache_dir``."""
 
@@ -156,20 +173,8 @@ class Pool:
         if not todo:
             return []
         os.makedirs(self.folder, exist_ok=True)
-        if workers is None:
-            workers = len(os.sched_getaffinity(0))
-        workers = max(1, min(workers, len(todo)))
-        if workers == 1:
-            for b in todo:
-                _build_block(self.config, b, self.folder)
-            return todo
-        ctx = multiprocessing.get_context("spawn")
-        with concurrent.futures.ProcessPoolExecutor(workers,
-                                                    mp_context=ctx) as ex:
-            futures = [ex.submit(_build_block, self.config, b, self.folder)
-                       for b in todo]
-            for fut in futures:
-                fut.result()
+        build_all(_build_block, [(self.config, b, self.folder) for b in todo],
+                  workers)
         return todo
 
     def payload(self, block: tuple) -> bytes:

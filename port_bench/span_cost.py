@@ -31,14 +31,14 @@ def _quartiles(values) -> dict:
 def measure(cell, seed: int, pairs: int, *, device: str = "cuda",
             cache_dir: str | None = None, workers=None) -> dict:
     from lzma_sdk_zliblike_tpu_torch.utils.trace import TRACE
-    from . import bench, lzma2_chunks
+    from . import bench, spec
     from . import pool as P
     files, streams, warm, _pool = bench._files(
         cell, seed, cache_dir or P.CACHE_DIR, workers, {})
-    prop = P.dict_prop(cell.config["dict_size"])
-    expect = [lzma2_chunks.work_bytes(s)[1] for s in streams]
-    decoder = bench.PortDecoder(device)
-    decoder(warm, prop)
+    entry = spec.entry(cell.entry)
+    expect = [entry.work(s)[1] for s in streams]
+    decoder = entry.Port(cell.config, device)
+    decoder(warm)
     secs = {"off": [], "on": []}
     span_s: dict = {"off": {}, "on": {}}
     for i in range(pairs):
@@ -48,9 +48,9 @@ def measure(cell, seed: int, pairs: int, *, device: str = "cuda",
             t = time.perf_counter()
             if side == "on":
                 with TRACE.capture():
-                    out = decoder(streams[f], prop)
+                    out = decoder(streams[f])
             else:
-                out = decoder(streams[f], prop)
+                out = decoder(streams[f])
             secs[side].append(time.perf_counter() - t)
             if len(out) != expect[f]:
                 raise RuntimeError(f"call {i} ({side}) returned "

@@ -14,7 +14,14 @@ Per call of ``lzma2_uncompress`` (``CallSpans``):
   version decodes inside the call);
 * ``after_s``: from K1's end (a synchronise before the first
   ``finalize_chunks``) to the call's return: the copy out and the ordered
-  join.
+  join;
+* ``timed``: per key of the entry point's ``TIMED``, the host time in the
+  port function it names (``xz_file``: each block's ``lzma2_uncompress``,
+  ``inner``, and its check, ``check``), summed.
+
+Where a call holds several ``lzma2_uncompress`` calls (an ``.xz`` file's
+blocks), ``plan_s``, ``launches`` and ``k1_s`` sum over them; the marks
+``plan_end``, ``first_launch`` and ``k1_end`` are the first inner call's.
 
 Each wrapper also opens a ``torch.profiler.record_function`` range, so the
 profiler's trace can name what the host did while the card was idle.
@@ -23,6 +30,7 @@ profiler's trace can name what the host did while the card was idle.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import time
 
 LABELS = {"scan": "plan", "split_groups": "plan",
@@ -42,6 +50,7 @@ class CallSpans:
     k1_end: float | None = None
     returned: float | None = None
     launches: int = 0
+    timed: dict = dataclasses.field(default_factory=dict)
 
     @property
     def pack_s(self) -> float:
@@ -65,9 +74,11 @@ class CallSpans:
 
 class Spans:
     """Installs the wrappers (``with Spans(): ...``) and keeps one
-    ``CallSpans`` per call between ``begin_call`` and ``end_call``."""
+    ``CallSpans`` per call between ``begin_call`` and ``end_call``.
+    ``timed``: an entry point's ``TIMED``, wrapped besides."""
 
-    def __init__(self):
+    def __init__(self, timed=()):
+        self.timed = timed
         self.calls: list[CallSpans] = []
         self.current: CallSpans | None = None
         self._saved: list = []
@@ -100,6 +111,9 @@ class Spans:
         self._wrap(G, "prep_groups", self._pack)
         self._wrap(G, "submit_groups", self._launch)
         self._wrap(G, "finalize_chunks", self._finalize)
+        for module, attr, label, key in self.timed:
+            self._wrap(importlib.import_module(module), attr,
+                       self._timer(key), label)
         return self
 
     def __exit__(self, *exc):
@@ -108,9 +122,9 @@ class Spans:
             setattr(owner, attr, orig)
         return False
 
-    def _wrap(self, owner, attr: str, step) -> None:
+    def _wrap(self, owner, attr: str, step, label: str | None = None) -> None:
         orig = getattr(owner, attr)
-        label = f"{LABELS[attr]}.{attr}"
+        label = label or f"{LABELS[attr]}.{attr}"
         record_function = self._torch.profiler.record_function
 
         def wrapper(*args, **kwargs):
@@ -123,6 +137,15 @@ class Spans:
         t = time.perf_counter()
         out = orig(*args, **kwargs)
         return out, t, time.perf_counter()
+
+    def _timer(self, key: str):
+        def step(orig, args, kwargs):
+            out, t0, t1 = self._timed(orig, args, kwargs)
+            if self.current is not None:
+                timed = self.current.timed
+                timed[key] = timed.get(key, 0.0) + t1 - t0
+            return out
+        return step
 
     def _plan(self, orig, args, kwargs):
         out, t0, t1 = self._timed(orig, args, kwargs)

@@ -2,11 +2,15 @@
 
 A cell (an entry of ``workloads``) names a configuration, whose ``file``
 holds its parameters, and a traffic mix, found as
-``port_bench/traffic/<traffic>.json``.  Each metric is read by
+``port_bench/traffic/<traffic>.json``.  The configuration's ``entry``
+names the port's entry point, ``port_bench/entries/<entry>.py``: what a
+call hands the port and how the port is called (``lzma2_stream`` where the
+file names none).  Each metric is read by
 ``port_bench/metrics/<name>.py``; a name split by the kind of cell that
 reports it (``decode_mb_s.host_paced``) without a file of its own is read
-by the file of the name before its last dot.  A later cell, configuration, mix or
-metric is added by adding files and entries: nothing here names one.
+by the file of the name before its last dot.  A later cell, configuration,
+mix, metric or entry point is added by adding files and entries: nothing
+here names one.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import importlib.util
 import json
 import os
 import re
+import sys
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -28,6 +33,8 @@ TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
             "end_to_end", "per_layer"}
 CONFIG_KEYS = {"name", "source", "file", "reduced", "why"}
 CELL_KEYS = {"name", "config", "traffic", "chips", "why"}
+DEFAULT_ENTRY = "lzma2_stream"
+ENTRY = re.compile(r"[A-Za-z0-9_]{1,64}\Z")
 E2E_KEYS = {"name", "unit", "better", "bound", "source"}
 LAYER_KEYS = {"name", "unit", "better", "source", "layer", "moves"}
 
@@ -180,6 +187,7 @@ class Cell:
     traffic: dict         # the mix's file, with its name
     end_to_end: list      # the metric entries this cell reports
     per_layer: list
+    entry: str = DEFAULT_ENTRY    # port_bench/entries/<entry>.py
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -203,9 +211,36 @@ def cell(bench: dict, name: str, root: str = ROOT) -> Cell:
                   name=w["config"])
     traffic = dict(_read_json(os.path.join(
         root, SUBDIR, "traffic", w["traffic"] + ".json")), name=w["traffic"])
+    entry_name = config.get("entry", DEFAULT_ENTRY)
+    _entry_path(entry_name, root)
     return Cell(name, w["chips"], config, traffic,
                 [m for m in bench["end_to_end"] if _applies(m, name)],
-                [m for m in bench["per_layer"] if _applies(m, name)])
+                [m for m in bench["per_layer"] if _applies(m, name)],
+                entry_name)
+
+
+def _entry_path(name, root: str) -> str:
+    path = os.path.join(root, SUBDIR, "entries", f"{name}.py")
+    if not isinstance(name, str) or not ENTRY.match(name) \
+            or not os.path.exists(path):
+        raise KeyError(f"entry {name!r}: no module "
+                       f"{SUBDIR}/entries/<entry>.py of that name")
+    return path
+
+
+def entry(name: str, root: str = ROOT):
+    """The module ``port_bench/entries/<name>.py`` of ``root``, imported
+    once a process as ``port_bench.entries.<name>``."""
+    path = _entry_path(name, root)
+    mod_name = f"{SUBDIR}.entries.{name}"
+    mod = sys.modules.get(mod_name)
+    if mod is not None and os.path.samefile(mod.__file__, path):
+        return mod
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str, root: str = ROOT):

@@ -67,8 +67,24 @@ def test_idle_is_the_trace_window_where_no_operation_ran():
 def test_untraced_runs_have_no_layer_metrics():
     run = make_run(False)
     for m in ("plan_ms", "pack_h2d_ms", "k1_ms", "k1_roofline",
-              "after_k1_ms", "device_idle_pct"):
+              "after_k1_ms", "device_idle_pct", "check_ms", "container_ms",
+              "k1_launches_per_call"):
         assert read(m, run) is None
+
+
+def test_an_xz_call_is_split_into_blocks_checks_and_container():
+    """Per call: the blocks' ``lzma2_uncompress`` (``inner``), the checks,
+    and the rest of the call's time; launches summed over its blocks."""
+    run = make_run()
+    for s, inner, check, launches in zip(run.spans, (0.3, 0.4, 0.05),
+                                         (0.1, 0.05, 0.0), (203, 203, 2)):
+        s.timed.update(inner=inner, check=check)
+        s.launches = launches
+    assert read("check_ms", run) == pytest.approx(50.0)
+    # calls of 0.5, 0.5 and 0.1 s
+    assert read("container_ms", run) == pytest.approx(
+        (0.1 + 0.05 + 0.05) / 3 * 1e3)
+    assert read("k1_launches_per_call", run) == pytest.approx(136.0)
 
 
 @pytest.mark.parametrize("name", [

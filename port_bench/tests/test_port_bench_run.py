@@ -1,6 +1,8 @@
 """A run of a cell end to end at a tiny size: the port's plain K1 on the
 CPU (the card's kernel in the ``cuda`` tests), the control, the faults a
-cell can have, the import rule and the refusal without a card."""
+cell can have, the import rule and the refusal without a card; each on
+both entry points, a raw stream (``xz_T0_preset0.bulk``) and a whole
+``.xz`` file (``xz_T0_preset0.xzfile``)."""
 
 import json
 import os
@@ -12,11 +14,12 @@ import time
 import pytest
 
 from port_bench import bench, spec
-from port_bench.control import UnorderedJoin
 
 from port_bench_helpers import tiny_cell
 
 SEED = 2**31 + 77
+BULK, XZFILE = "xz_T0_preset0.bulk", "xz_T0_preset0.xzfile"
+CELLS = [BULK, XZFILE]
 
 
 def run(tmp_path, device="cpu", trace=False, decoder=None, seed=SEED,
@@ -27,8 +30,9 @@ def run(tmp_path, device="cpu", trace=False, decoder=None, seed=SEED,
                           cache_dir=str(tmp_path), workers=1)
 
 
-def test_a_sound_run_is_correct(tmp_path):
-    r = run(tmp_path)
+@pytest.mark.parametrize("name", CELLS)
+def test_a_sound_run_is_correct(tmp_path, name):
+    r = run(tmp_path, cell=tiny_cell(name))
     assert r["correct"] and r["failed"] == 0 and r["attempted"] >= 1
     assert list(r["checks"]) == ["wrong_bytes", "wrong_calls",
                                  "wrong_length_calls", "failed_calls"]
@@ -36,11 +40,12 @@ def test_a_sound_run_is_correct(tmp_path):
     assert all(v["value"] > 0 for v in r["metrics"].values())
 
 
-def test_a_traced_run_reports_every_layer_metric(tmp_path):
+@pytest.mark.parametrize("name", CELLS)
+def test_a_traced_run_reports_every_layer_metric(tmp_path, name):
     """On the CPU the trace holds no device operation, so the idle share
     is left out; every other layer metric is there (all of them in the
     ``cuda`` test)."""
-    cell = tiny_cell()
+    cell = tiny_cell(name)
     r = run(tmp_path, trace=True, cell=cell)
     assert r["correct"]
     assert set(r["metrics"]) == {m["name"] for m in cell.per_layer
@@ -50,19 +55,23 @@ def test_a_traced_run_reports_every_layer_metric(tmp_path):
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-def test_the_control_is_not_correct(tmp_path):
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_is_not_correct(tmp_path, name):
     """The reference decoder with the ordered join left out (lane order,
     largest packed group first) reads wrong bytes on every seed."""
-    cell = tiny_cell(per_call=4, pool=6)
+    cell = tiny_cell(name, per_call=4, pool=6)
+    control = spec.entry(cell.entry).Control(cell.config)
     for seed in (1, 2, SEED):
-        r = run(tmp_path, decoder=UnorderedJoin(cell.config["dict_size"]),
-                seed=seed, cell=cell)
+        r = run(tmp_path, decoder=control, seed=seed, cell=cell)
         assert not r["correct"]
         assert r["checks"]["wrong_bytes"]["value"] > 0
 
 
 def fault(monkeypatch, kind):
-    """Breaks the port's timed path underneath ``lzma2_uncompress``."""
+    """Breaks the port's timed path underneath ``lzma2_uncompress``: K1's
+    output, or the bytes ``finalize_chunks`` places in the call's result
+    (``result=``, ``placements=``: a list per lane of (row offset, length,
+    result offset)) or returns as rows."""
     import torch
     from lzma_sdk_zliblike_tpu_torch.ops import group_decode as G
     submit, finalize = G.submit_groups, G.finalize_chunks
@@ -75,23 +84,64 @@ def fault(monkeypatch, kind):
         return
 
     def broken(handle, **kw):
-        out, ok, consumed = finalize(handle, **kw)
-        out = out.clone()
+        if kw.get("result") is None:
+            out, ok, consumed = finalize(handle, **kw)
+            out = out.clone()
+            if kind == "half_batch_left_out":
+                out[out.shape[0] // 2:] = 0
+            else:                       # one byte altered where made
+                out[0, 5] ^= 0x40
+            return out, ok, consumed
+        ok, consumed = finalize(handle, **kw)
+        result = kw["result"]
+        lanes = [lane for lane in kw["placements"] if lane]
         if kind == "half_batch_left_out":
-            out[out.shape[0] // 2:] = 0
-        else:                           # one byte altered where made
-            out[0, 5] ^= 0x40
-        return out, ok, consumed
+            for lane in lanes[len(lanes) // 2:]:
+                for _, n, at in lane:
+                    result[at:at + n] = 0
+        else:                           # one byte altered where placed
+            _, n, at = lanes[0][0]
+            result[at + min(5, n - 1)] ^= 0x40
+        return ok, consumed
     monkeypatch.setattr(G, "finalize_chunks", broken)
 
 
-@pytest.mark.parametrize("kind", ["state_unchanged", "half_batch_left_out",
-                                  "answer_altered"])
-def test_a_broken_timed_path_is_not_correct(tmp_path, monkeypatch, kind):
-    fault(monkeypatch, kind)
-    r = run(tmp_path)
+FAULTS = ["state_unchanged", "half_batch_left_out", "answer_altered"]
+
+
+class Armed:
+    """The entry point's port, with ``arm()`` called after its first call
+    (the warm-up, which an ``.xz`` file's block check would fail before
+    the window opens)."""
+
+    def __init__(self, cell, device, arm):
+        self.port = spec.entry(cell.entry).Port(cell.config, device)
+        self.arm, self.calls = arm, 0
+
+    def __call__(self, image):
+        if self.calls == 1:
+            self.arm()
+        self.calls += 1
+        return self.port(image)
+
+
+def broken_run(tmp_path, monkeypatch, kind, cell, device="cpu"):
+    return run(tmp_path, device=device, cell=cell, decoder=Armed(
+        cell, device, lambda: fault(monkeypatch, kind)))
+
+
+@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("kind", FAULTS)
+def test_a_broken_timed_path_is_not_correct(tmp_path, monkeypatch, kind,
+                                            name):
+    """A raw stream's fault reads wrong bytes; an ``.xz`` file's is caught
+    by the port's block check first, so the call raises and fails."""
+    r = broken_run(tmp_path, monkeypatch, kind, tiny_cell(name))
     assert not r["correct"]
-    assert r["checks"]["wrong_bytes"]["value"] > 0
+    if name == BULK:
+        assert r["checks"]["wrong_bytes"]["value"] > 0
+    else:
+        assert r["checks"]["failed_calls"]["value"] == r["attempted"]
 
 
 def test_forbidden_modules_compare_whole_top_level_names():
@@ -108,9 +158,12 @@ import sys, time
 sys.path.insert(0, sys.argv[1]); sys.path.insert(0, sys.argv[2])
 from port_bench import bench, control, profiling, spans
 from port_bench_helpers import tiny_cell
-r = bench.run_cell(tiny_cell(), 5, 0.01, True, t0=time.perf_counter(),
-                   device="cpu", cache_dir=sys.argv[3], workers=1)
-assert r["correct"], r
+for name, trace in (("xz_T0_preset0.bulk", True),
+                    ("xz_T0_preset0.xzfile", False)):
+    r = bench.run_cell(tiny_cell(name), 5, 0.01, trace,
+                       t0=time.perf_counter(), device="cpu",
+                       cache_dir=sys.argv[3], workers=1)
+    assert r["correct"], r
 print(bench.forbidden_modules(sys.modules))
 """
 
@@ -150,16 +203,17 @@ def test_a_checkout_without_the_port_gives_no_result(tmp_path):
 
 
 @pytest.mark.cuda
-def test_on_the_card_sound_and_broken(card, tmp_path, monkeypatch):
-    cell = tiny_cell()
+@pytest.mark.parametrize("name", CELLS)
+def test_on_the_card_sound_and_broken(card, tmp_path, monkeypatch, name):
+    cell = tiny_cell(name)
     r = run(tmp_path, device=card, trace=True, cell=cell)
     assert r["correct"] and r["device"]["platform"] == "gpu"
     assert r["device"]["busy_s"] > 0
     assert set(r["metrics"]) == {m["name"] for m in cell.per_layer}
-    for kind in ("state_unchanged", "half_batch_left_out", "answer_altered"):
+    for kind in FAULTS:
         with monkeypatch.context() as m:
-            fault(m, kind)
-            assert not run(tmp_path, device=card)["correct"], kind
+            assert not broken_run(tmp_path, m, kind, cell,
+                                  device=card)["correct"], kind
 
 
 def test_the_result_line_keeps_the_contract(tmp_path, capsys):

@@ -17,17 +17,31 @@ def test_the_benchmark_keeps_its_rules():
     b = bench()
     assert spec.problems(b) == []
     p6, p0 = "xz_T0_preset6.bulk", "xz_T0_preset0.bulk"
-    assert {w["name"] for w in b["workloads"]} == {p6, p0}
-    moves = {p6: "decode_mb_s", p0: "decode_mb_s.host_paced"}
-    layers = ["plan_ms", "pack_h2d_ms", "k1_ms", "k1_roofline",
-              "after_k1_ms", "device_idle_pct"]
+    xzfile = "xz_T0_preset0.xzfile"
+    assert {w["name"] for w in b["workloads"]} == {p6, p0, xzfile}
+    assert all(w["chips"] == 1 for w in b["workloads"])
+    assert len(b["configs"]) == 3
+    moves = {p6: "decode_mb_s", p0: "decode_mb_s.host_paced",
+             xzfile: "decode_mb_s.host_paced"}
+    bulk = ["plan_ms", "pack_h2d_ms", "k1_ms", "k1_roofline",
+            "after_k1_ms", "device_idle_pct", "d2h_ms", "join_ms",
+            "k1_ns_per_bit_call"]
+    layers = {p6: bulk, p0: [m + ".host_paced" for m in bulk],
+              xzfile: ["plan_ms.host_paced", "k1_ms.host_paced",
+                       "k1_roofline.host_paced",
+                       "device_idle_pct.host_paced",
+                       "k1_ns_per_bit_call.host_paced", "check_ms",
+                       "container_ms", "k1_launches_per_call"]}
+    entries = {p6: "lzma2_stream", p0: "lzma2_stream", xzfile: "xz_file"}
     for name, rate in moves.items():
         cell = spec.cell(b, name)
+        assert cell.entry == entries[name]
         assert [m["name"] for m in cell.end_to_end] == [rate, "setup_s"]
-        suffix = rate[len("decode_mb_s"):]
-        assert [m["name"] for m in cell.per_layer] == [
-            m + suffix for m in layers]
+        assert [m["name"] for m in cell.per_layer] == layers[name]
         assert all(m["moves"] == rate for m in cell.per_layer)
+    for m in b["per_layer"]:
+        if m["name"] in ("check_ms", "container_ms", "k1_launches_per_call"):
+            assert m["workloads"] == [xzfile]
 
 
 def test_every_name_has_its_files():
@@ -85,9 +99,25 @@ def test_extra_keys_and_repeats_are_found():
     assert spec.problems(b)
 
 
+def test_an_unknown_entry_point_is_refused(tmp_path):
+    root = tmp_path / "checkout"
+    shutil.copytree(spec.BENCH_DIR, root / spec.SUBDIR,
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    b = bench()
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    path = root / "port_bench" / "configs" / "xz_T0_preset0_file.json"
+    for name in ("no_such_entry", "../bench", "xz.file", 3):
+        path.write_text(json.dumps(dict(json.loads(path.read_text()),
+                                        entry=name)))
+        with pytest.raises(KeyError):
+            spec.cell(b, "xz_T0_preset0.xzfile", str(root))
+    with pytest.raises(KeyError):
+        spec.entry("no_such_entry")
+
+
 def test_a_cell_added_as_files_alone_is_found(tmp_path):
-    """A later cell, configuration, mix and metric: new files and new
-    entries, no file of the harness edited."""
+    """A later cell, configuration, mix, metric and entry point: new files
+    and new entries, no file of the harness edited."""
     root = tmp_path / "checkout"
     shutil.copytree(spec.BENCH_DIR, root / spec.SUBDIR,
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
@@ -95,7 +125,10 @@ def test_a_cell_added_as_files_alone_is_found(tmp_path):
     sub = root / spec.SUBDIR
     cfg = json.loads((sub / "configs" / "xz_T0_preset0.json").read_text())
     (sub / "configs" / "xz_T0_preset3.json").write_text(json.dumps(
-        dict(cfg, preset=3, dict_size=4 << 20, block_size=12 << 20)))
+        dict(cfg, preset=3, dict_size=4 << 20, block_size=12 << 20,
+             entry="later_entry")))
+    (sub / "entries" / "later_entry.py").write_text(
+        "CALL = 'later'\n")
     mix = json.loads((sub / "traffic" / "silesia_tar.json").read_text())
     (sub / "traffic" / "enwik8.json").write_text(json.dumps(
         dict(mix, file_bytes=100_000_000)))
@@ -117,6 +150,8 @@ def test_a_cell_added_as_files_alone_is_found(tmp_path):
     cell = spec.cell(loaded, "xz_T0_preset3.bulk", str(root))
     assert cell.config["preset"] == 3 and cell.config["name"] == \
         "xz_T0_preset3"
+    assert cell.entry == "later_entry"
+    assert spec.entry(cell.entry, str(root)).CALL == "later"
     assert cell.traffic["file_bytes"] == 100_000_000
     assert [m["name"] for m in cell.per_layer][-1] == "calls_n"
     assert "calls_n" not in [m["name"] for m in spec.cell(
