@@ -20,13 +20,30 @@ coders (optionally BCJ-chained), readable by the reference `7zDec` — used
 for golden fixtures and as a framework capability.
 
 The port's copy of the JAX package's ``containers/sevenzip.py``; archives
-and extractions are byte-identical to it.  No 7z path has a device route
-in either package: LZMA and LZMA2 coders run on the host
-(``engine.lzma_raw_decode`` / ``framing.decode``), with ``engine`` one of
-``"auto"``, ``"native"`` or ``"python"``; any other name raises
-UnsupportedError, where the JAX package runs the pure-Python decoder for
-it.  PPMd folders always go to the native codec (``models/ppmd7``), as the
+and extractions are byte-identical to it.  The host engines are
+``"auto"`` (the default), ``"native"`` and ``"python"``: LZMA and LZMA2
+coders run on the host (``engine.lzma_raw_decode`` / ``framing.decode``),
+and PPMd folders always go to the native codec (``models/ppmd7``), as the
 JAX package's do when its runtime is built.
+
+``extract`` and ``test`` also take ``engine="device"`` (with ``device``,
+``"cuda"`` or ``"cpu"`` for the kernels' plain versions), a route the JAX
+package does not have (``_extract_device``).  The header is read on the
+host, as ever (raw LZMA has no device route).  Every LZMA2 folder, alone
+or behind x86 BCJ (the shape ``7zDec.c``'s ``CheckSupportedFolder``
+takes), is scanned in place in the archive, and the dict-reset groups of
+all of them go to K1 as one batch (``utils/memory.shape_for_groups``,
+``parallel/scheduler.BatchedLzma2Decoder.decode_into``), each placed at
+its folder's offset in one result.  A BCJ folder's bytes are converted by
+X4 x86 (``ops/device_filters.x86_convert_batch``) on the card from state 0
+at the folder's start, as ``7zDec.c`` converts a whole folder: in its K1
+row when the folder is one group, over the placed folder otherwise.
+Every folder and file CRC32 is checked on the host.  Any other folder
+(LZMA, PPMd, Copy, BCJ2, another filter) decodes on the host
+(``sevenzip.host_folders``).  Any other engine name, a device one among
+them, raises UnsupportedError, where the JAX package runs the pure-Python
+decoder for it; ``write`` and ``decode_folder`` take the host engines
+alone.
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ from ..ops import filters as FLT
 from ..utils.checksums import crc32
 from ..utils.errors import (ArchiveError, CrcError, DataError, InputEofError,
                             NoArchiveError, UnsupportedError)
+from ..utils.trace import TRACE
 
 SIGNATURE = b"7z\xbc\xaf\x27\x1c"
 
@@ -624,9 +642,14 @@ def _run_coder(coder: Coder, ins: list[bytes], out_size: int,
 # extraction API (7zMain.c command equivalents)
 # ---------------------------------------------------------------------------
 
-def extract(data: bytes, *, verify: bool = True,
-            engine: str = "auto") -> dict[str, bytes]:
-    """Extract all files to memory (solid-block cache per folder)."""
+def extract(data: bytes, *, verify: bool = True, engine: str = "auto",
+            device="cuda") -> dict[str, bytes]:
+    """Extract all files to memory (solid-block cache per folder).
+
+    ``engine="device"`` decodes the LZMA2 folders with K1 on ``device``
+    (``_extract_device``); the host engines ignore ``device``."""
+    if engine == "device":
+        return _extract_device(data, verify, device)
     check_engine(engine, "7z")
     ar = parse(data)
     out: dict[str, bytes] = {}
@@ -651,9 +674,170 @@ def extract(data: bytes, *, verify: bool = True,
     return out
 
 
-def test(data: bytes, *, engine: str = "auto") -> list[str]:
+def test(data: bytes, *, engine: str = "auto", device="cuda") -> list[str]:
     """The `t` command: decode + verify everything, return file names."""
-    return list(extract(data, verify=True, engine=engine).keys())
+    return list(extract(data, verify=True, engine=engine,
+                        device=device).keys())
+
+
+# ---------------------------------------------------------------------------
+# the device route (engine="device")
+# ---------------------------------------------------------------------------
+
+def _card_folder(folder: Folder) -> bool | None:
+    """Whether the folder is LZMA2 behind x86 BCJ (True) or LZMA2 alone
+    (False), the shapes the device route takes; None for any other."""
+    c = folder.coders
+    if not all(x.num_in == 1 and x.num_out == 1 for x in c) or \
+            c[0].method != M_LZMA2 or len(c[0].props) != 1 or \
+            folder.packed_indices != [0]:
+        return None
+    if len(c) == 1:
+        return False
+    if len(c) == 2 and c[1].method == M_BCJ and \
+            folder.bind_pairs == [(1, 0)]:
+        return True
+    return None
+
+
+def _folder_groups(data: bytes, ar: Archive, fi: int):
+    """Folder ``fi``'s LZMA2 dict-reset groups, scanned in place (each
+    chunk's offset is into ``data``), or None where its stream is not one
+    the card can take; the host then decodes the folder and reports its
+    fault as ``extract`` does."""
+    folder = ar.folders[fi]
+    start = ar.folder_pack_offset(fi)
+    end = start + ar.pack_sizes[ar.folder_pack_base[fi]]
+    try:
+        framing.decode_dict_prop(folder.coders[0].props[0])
+        chunks = framing.scan(memoryview(data)[:end], start)[0]
+        groups = framing.split_groups(chunks)
+    except (DataError, InputEofError):
+        return None
+    if sum(c.unpack_size for c in chunks) != folder.unpack_sizes[0]:
+        return None
+    return groups
+
+
+def _card_groups(data: bytes, ar: Archive):
+    """``(groups, spans)``: the dict-reset groups of every folder the card
+    takes, folder after folder, and per such folder ``(start, end, bcj,
+    group indices)``, its place in the result they decode into."""
+    groups: list = []
+    spans: dict[int, tuple[int, int, bool, list[int]]] = {}
+    at = 0
+    for fi, folder in enumerate(ar.folders):
+        bcj = _card_folder(folder)
+        found = None if bcj is None else _folder_groups(data, ar, fi)
+        if found is None:
+            continue
+        spans[fi] = (at, at + folder.unpack_size, bcj,
+                     list(range(len(groups), len(groups) + len(found))))
+        groups += found
+        at += folder.unpack_size
+    return groups, spans
+
+
+def _x86_on_card(row) -> None:
+    """X4 x86 BCJ decode over the uint8 row ``[1, n]`` in place, on the
+    row's device, from state 0 at stream offset 0 (``7zDec.c:441-453``).
+    Counts ``device_filters.x86_bytes``; with spans on, the time of the
+    launch and of the copy of its output back into the row goes to
+    ``device_filters.x86_ms`` (CUDA events on the card, the host clock for
+    the plain version)."""
+    import time
+
+    import torch
+
+    from ..ops import device_filters as DF
+    n, dev = row.shape[1], row.device
+    valid = torch.full((1,), n, dtype=torch.int32, device=dev)
+    ip = torch.zeros(1, dtype=torch.int64, device=dev)
+    with TRACE.span("sevenzip.filter"):
+        timed = TRACE.on
+        if timed and dev.type == "cuda":
+            marks = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            marks[0].record()
+        t0 = time.perf_counter_ns()
+        row.copy_(DF.x86_convert_batch(row, valid, ip, encoding=False))
+        if timed and dev.type == "cuda":
+            marks[1].record()
+            marks[1].synchronize()
+            TRACE.add("device_filters.x86_ms", marks[0].elapsed_time(marks[1]))
+        elif timed:
+            TRACE.add("device_filters.x86_ms",
+                      (time.perf_counter_ns() - t0) * 1e-6)
+    TRACE.add("device_filters.x86_bytes", n)
+
+
+def _extract_device(data: bytes, verify: bool, device) -> dict[str, bytes]:
+    """``extract`` with the LZMA2 folders on K1 (``engine="device"``).
+
+    Spans, one set a call: the root ``sevenzip.extract``; ``sevenzip.header``
+    (the archive read); ``sevenzip.decode`` (the folders' chunks scanned,
+    the one batch shaped and decoded into the result, a host folder
+    decoded); ``sevenzip.filter`` (each X4 x86 launch, inside the decode
+    where it runs on a K1 row); ``sevenzip.check`` (the folder and file
+    CRC32s); ``sevenzip.files`` (each file's bytes cut from the result)."""
+    import torch
+
+    from ..api import check_device
+    from ..parallel.scheduler import BatchedLzma2Decoder
+    from ..utils.memory import result_bytes, shape_for_groups
+
+    dev = check_device(device)
+    with TRACE.span("sevenzip.extract", call=True):
+        with TRACE.span("sevenzip.header"):
+            ar = parse(data)
+        with TRACE.span("sevenzip.decode"):
+            groups, spans = _card_groups(data, ar)
+            convert = {gis[0]: _x86_on_card for _a, _b, bcj, gis in
+                       spans.values() if bcj and len(gis) == 1}
+            out, view = result_bytes(sum(b - a for a, b, *_ in
+                                         spans.values()))
+            converted: set[int] = set()
+            if groups:
+                dec = BatchedLzma2Decoder(shape_for_groups(groups,
+                                                           device=dev),
+                                          device=dev)
+                converted = dec.decode_into(data, groups, view,
+                                            convert=convert)
+            for a, b, bcj, gis in spans.values():
+                if bcj and not set(gis) <= converted:
+                    row = torch.from_numpy(view[a:b]).to(dev)[None]
+                    _x86_on_card(row)
+                    view[a:b] = row[0].cpu().numpy()
+            del view
+            body = memoryview(out)
+            bodies: dict[int, memoryview] = {}
+            for fi in range(len(ar.folders)):
+                if fi in spans:
+                    bodies[fi] = body[spans[fi][0]:spans[fi][1]]
+                elif any(f.folder == fi for f in ar.files):
+                    TRACE.add("sevenzip.host_folders")
+                    bodies[fi] = memoryview(decode_folder(data, ar, fi))
+        if verify:
+            with TRACE.span("sevenzip.check"):
+                for fi, part in bodies.items():
+                    want = ar.folders[fi].crc
+                    if want is not None and crc32(part) != want:
+                        raise CrcError(f"folder {fi} CRC mismatch")
+                for f in ar.files:
+                    if f.has_stream and f.crc is not None and crc32(
+                            bodies[f.folder][f.offset_in_folder:
+                                             f.offset_in_folder + f.size]
+                    ) != f.crc:
+                        raise CrcError(f"file {f.name} CRC mismatch")
+        with TRACE.span("sevenzip.files"):
+            files: dict[str, bytes] = {}
+            for f in ar.files:
+                if f.is_dir:
+                    continue
+                files[f.name] = bytes(bodies[f.folder][
+                    f.offset_in_folder:f.offset_in_folder + f.size]) \
+                    if f.has_stream else b""
+            return files
 
 
 def list_files(data: bytes) -> list[FileEntry]:

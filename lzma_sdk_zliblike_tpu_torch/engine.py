@@ -12,8 +12,11 @@ dict-reset groups, so it has no device route in either package.  Engines:
 Any other name, a device engine's among them ("tpu", "device", "hybrid"),
 raises UnsupportedError: the JAX package runs the Python codec for a device
 engine name without saying so, the port refuses it.  The other host-only
-paths that take an engine name (``framing.decode`` and ``encode``, 7z,
-PPMd7) check it here too.
+paths that take an engine name (``framing.decode`` and ``encode``, PPMd7,
+7z's ``write`` and ``decode_folder``) check it here too.  7z's
+``extract`` and ``test`` take ``"device"`` before this check: their LZMA2
+folders then decode on K1 (``containers/sevenzip._extract_device``), and
+the archive's LZMA-coded header and its other folders on the host.
 """
 
 from __future__ import annotations

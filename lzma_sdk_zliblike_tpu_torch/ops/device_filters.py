@@ -37,9 +37,12 @@ each.
   ``x86_convert_plain`` / ``bcj2_decode_plain``, transcribe the JAX
   package's lockstep candidate scan in torch ops.
 
-``convert_batch`` dispatches a named branch filter over numpy arrays.  No
-caller of the package routes its filters here yet: xz and 7z filter on the
-host (``ops/filters.py``).
+``convert_batch`` dispatches a named branch filter over numpy arrays.  One
+user path launches X4: the 7z device route (``containers/sevenzip.extract(
+engine="device")``) decodes a BCJ folder's x86 filter with
+``x86_convert_batch`` on the card, on the folder's K1 row where it is one
+dict-reset group.  xz and 7z's host engines filter on the host
+(``ops/filters.py``).
 """
 
 from __future__ import annotations

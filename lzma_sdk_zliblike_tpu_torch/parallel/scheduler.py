@@ -19,6 +19,12 @@ the native decoder (``scheduler.host_fallback_groups``).
 ``submit_batch`` / ``finalize_batch`` are the per-batch pair of the hybrid
 engine (``parallel/hybrid.py``): one group per lane, each group's bytes back
 or None where its lane failed.
+
+``decode_into`` takes groups that may come from several streams of one
+buffer (the 7z device route hands it every LZMA2 folder of an archive,
+each chunk's offset into the archive) and, per group, a function that
+rewrites the group's bytes in its K1 row before they are copied out (the
+route's x86 BCJ on the card).
 """
 
 from __future__ import annotations
@@ -118,12 +124,22 @@ class BatchedLzma2Decoder:
         return [out[a:b] for a, b in zip(ends[:-1], ends[1:])]
 
     def decode_into(self, stream: bytes, groups: list[list[framing.Chunk]],
-                    result: np.ndarray) -> None:
+                    result: np.ndarray, *, convert=None) -> set[int]:
         """Decode dict-reset groups into ``result`` (writable uint8, their
         unpacked size in all), each group at the prefix sum of the sizes
         before it: a card's group from its lane's row, a copy-only group
         from the stream's bytes, another group from the host decoder's.  No
-        group's bytes become an object of their own on the way."""
+        group's bytes become an object of their own on the way.
+
+        ``convert`` maps a group index to a function that rewrites that
+        group's bytes where K1 left them, before they are copied out: it is
+        called with the ``[1, n]`` uint8 slice of the lane's row (on the
+        card, or the plain version's CPU row) and changes it in place.
+        Returns the groups so converted; a group decoded anywhere else (a
+        copy-only or host group) comes back as it decoded, for the caller
+        to convert."""
+        convert = convert or {}
+        converted: set[int] = set()
         offs = np.cumsum([0] + [_unpacked(g) for g in groups]).tolist()
         if len(result) != offs[-1]:
             raise ValueError(f"a result of {len(result)} bytes for groups "
@@ -150,7 +166,9 @@ class BatchedLzma2Decoder:
                 del decoded
         for props, idx in by_props.items():
             self._decode_on_device(stream, groups, idx, props,
-                                   self._multi_k(len(idx)), offs, result)
+                                   self._multi_k(len(idx)), offs, result,
+                                   convert, converted)
+        return converted
 
     def _sort(self, groups: list[list[framing.Chunk]]):
         """``(copies, natives, by_props)``: the copy-only groups, the
@@ -198,17 +216,18 @@ class BatchedLzma2Decoder:
                           (G.CAP_LIMIT - 1) // max(s.pack_cap, s.dic_cap)))
 
     def _decode_on_device(self, stream, groups, idx, props, k: int, offs,
-                          result):
+                          result, convert, converted):
         """Decode groups ``idx`` of one (lc, lp, pb) into ``result`` at
         ``offs`` in batches of lanes of up to k groups, keeping at most
         INFLIGHT batches on the device: the card decodes one batch while
-        the host assembles the next."""
+        the host assembles the next.  ``convert`` and ``converted`` are
+        ``decode_into``'s."""
         pending: collections.deque = collections.deque()
         again: list[int] = []
         for lanes in self._pack_lanes(groups, idx, k):
             if len(pending) == INFLIGHT:
                 again += self._finalize(*pending.popleft(), groups, stream,
-                                        offs, result)
+                                        offs, result, convert, converted)
             TRACE.add("scheduler.pallas_multi_batches" if k > 1
                       else "scheduler.pallas_batches")
             with TRACE.span("scheduler.assemble"):
@@ -219,10 +238,10 @@ class BatchedLzma2Decoder:
             pending.append((handle, lanes, k))
         while pending:
             again += self._finalize(*pending.popleft(), groups, stream, offs,
-                                    result)
+                                    result, convert, converted)
         if again:   # groups of failed multi-group lanes: one per lane now
             self._decode_on_device(stream, groups, again, props, 1, offs,
-                                   result)
+                                   result, convert, converted)
 
     def _pack_lanes(self, groups, idx, k: int):
         """Batches of lanes, each lane a list of group indices within
@@ -296,11 +315,13 @@ class BatchedLzma2Decoder:
             dic_cap=dic_cap, lc=lc, lp=lp, pb=pb)
 
     def _finalize(self, handle: G.GroupBatch, lanes, k: int, groups,
-                  stream: bytes, offs, result) -> list[int]:
+                  stream: bytes, offs, result, convert,
+                  converted) -> list[int]:
         """Place a batch's ok lanes in ``result``, each group at its offset
-        in ``offs``.  Returns the groups of failed lanes of several groups,
-        to decode again one group per lane; a failed lane of one group
-        raises.
+        in ``offs``, once ``convert``'s groups are rewritten in their rows
+        (added to ``converted`` where their lane is ok).  Returns the
+        groups of failed lanes of several groups, to decode again one group
+        per lane; a failed lane of one group raises.
 
         The reference's MtCoder poisons the whole ring on any thread error
         (``MtCoder.c:226-247``); here a bad group fails by itself,
@@ -314,6 +335,7 @@ class BatchedLzma2Decoder:
                 placed.append((at, n, offs[gi]))
                 at += n
             placements.append(placed)
+        rewritten = self._convert_rows(handle, lanes, placements, convert)
         ok, _consumed = G.finalize_chunks(
             handle, dic_cap=k * self.shape.dic_cap, result=result,
             placements=placements)
@@ -321,6 +343,7 @@ class BatchedLzma2Decoder:
         with TRACE.span("scheduler.outputs"):
             for lane, good in zip(lanes, ok.tolist()):
                 if good:
+                    converted.update(gi for gi in lane if gi in rewritten)
                     continue
                 TRACE.add("scheduler.lane_retries")
                 if len(lane) > 1:
@@ -328,6 +351,25 @@ class BatchedLzma2Decoder:
                     continue
                 self._raise_failed(stream, groups[lane[0]], lane[0])
         return again
+
+    @staticmethod
+    def _convert_rows(handle: G.GroupBatch, lanes, placements,
+                      convert) -> set[int]:
+        """Runs ``convert``'s function of each group of the finished batch
+        over its bytes in its lane's row, and moves the batch's event
+        after them, so that the copy out waits for them.  Returns the
+        groups rewritten."""
+        done: set[int] = set()
+        for li, (lane, placed) in enumerate(zip(lanes, placements)):
+            for gi, (at, n, _) in zip(lane, placed):
+                if gi in convert:
+                    convert[gi](handle.out[li:li + 1, at:at + n])
+                    done.add(gi)
+        if done and handle.done is not None:
+            with torch.cuda.device(handle.out.device):
+                handle.done = torch.cuda.Event()
+                handle.done.record()
+        return done
 
     def _outputs(self, handle: G.GroupBatch, lane_groups, k: int):
         """Per lane of a batch, its groups' bytes in order, or None where

@@ -67,6 +67,21 @@ the one above it in this list or of the root:
   bookkeeping);
 * ``api.join`` -- the result finished: its writable view released.
 
+The 7z device route, ``containers/sevenzip.extract(engine="device")``,
+opens its own root a call, ``sevenzip.extract``, and below it
+``sevenzip.header`` (the archive read, its LZMA-coded header decoded),
+``sevenzip.decode`` (the LZMA2 folders' chunks scanned and their groups
+decoded as one batch, with the scheduler's and ``group_decode``'s spans
+above inside it, and any other folder decoded on the host),
+``sevenzip.filter`` (each X4 x86 launch over a BCJ folder: inside
+``sevenzip.decode`` when it runs on the folder's K1 row),
+``sevenzip.check`` (the folder and file CRC32s) and ``sevenzip.files``
+(each file's bytes cut from the result); its counters are
+``device_filters.x86_bytes`` (the bytes X4 x86 converted),
+``device_filters.x86_ms`` with spans on (CUDA events around each X4 x86
+launch; the host clock for the plain version) and
+``sevenzip.host_folders`` (folders decoded on the host).
+
 Decode counters: ``group_decode.lanes`` (the active lanes of each batch,
 summed), ``group_decode.chain_bit_calls`` (each batch's most range-coder
 bit calls in one lane, summed: the serial chain K1 walked) and, with spans

@@ -7,8 +7,10 @@ be byte-identical on every folder shape of ``tests/test_sevenzip.py``
 corrupt byte must raise the same error class in both, and ``carve`` /
 ``find_signature`` must agree.  The reference's ``7z`` reads the port's
 archives where the ``oracle`` fixture has it.  Pinned: a device engine
-name, which the JAX package runs in pure Python, raises UnsupportedError
-in the port.
+name other than ``"device"``, which the JAX package runs in pure Python,
+raises UnsupportedError in the port; ``"device"`` is the port's device
+route (``tests/test_torch_sevenzip_device.py``), equal to the JAX
+package's host extraction.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import importlib
 import importlib.util
 import os
 import subprocess
+import sys
 import types
 
 import pytest
@@ -35,6 +38,12 @@ _jnl = importlib.util.spec_from_file_location(
 _JNL = importlib.util.module_from_spec(_jnl)
 _jnl.loader.exec_module(_JNL)
 jax_native_loaded = _JNL.jax_native_loaded
+_arch = importlib.util.spec_from_file_location(
+    "lzt_torch_sevenz_archives_jax",
+    os.path.join(REPO, "tests", "torch_sevenz_archives.py"))
+_ARCHIVES = importlib.util.module_from_spec(_arch)
+sys.modules[_arch.name] = _ARCHIVES
+_arch.loader.exec_module(_ARCHIVES)
 _spec = importlib.util.spec_from_file_location(
     "lzt_corpus", os.path.join(REPO, "tests", "corpus.py"))
 _corpus = importlib.util.module_from_spec(_spec)
@@ -176,16 +185,36 @@ def test_mtime_helpers_match_jax(tmp_path):
 def test_device_engine_refused_where_jax_runs_python():
     """Pinned: the JAX package decodes with ``engine="tpu"`` in pure Python
     (``framing.decode`` sends every name but auto/native to
-    ``decode_chunks``); the port refuses device names before any work."""
+    ``decode_chunks``); the port refuses ``"tpu"``, ``"hybrid"`` and
+    ``"cuda"`` before any work, and ``write`` refuses ``"device"`` too.
+    ``extract(engine="device")`` is the port's device route: its output
+    equals the JAX package's host extraction."""
     img = _img(dict(method=TS.M_LZMA2))
     assert JS.extract(img, engine="tpu") == FILES
-    for engine in ("tpu", "device", "hybrid", "cuda"):
+    for engine in ("tpu", "hybrid", "cuda"):
         with pytest.raises(TE.UnsupportedError):
             TS.extract(img, engine=engine)
         with pytest.raises(TE.UnsupportedError):
             TS.write(FILES, engine=engine)
     with pytest.raises(TE.UnsupportedError):
+        TS.write(FILES, engine="device")
+    assert TS.extract(img, engine="device", device="cpu") == \
+        JS.extract(img) == FILES
+    with pytest.raises(TE.UnsupportedError):
         TS.test(img, engine="tpu")
+
+
+@pytest.mark.parametrize("exe,data", [(1, 2), (2, 1)],
+                         ids=["bcj_one_group", "bcj_of_several_groups"])
+def test_device_route_equals_jax_on_7zip_archives(exe, data):
+    """Archives laid out as 7-Zip writes them (an x86 BCJ folder and an
+    LZMA2 folder of several dict-reset groups, the header LZMA-coded): the
+    port's device route, on the kernels' plain versions, gives the JAX
+    package's extraction and the plain reference's, byte for byte."""
+    img = _ARCHIVES.archive(2**31 + exe, exe=exe, data=data)
+    got = TS.extract(img, engine="device", device="cpu")
+    assert got == JS.extract(img) == _ARCHIVES.originals(img)
+    assert list(got) == list(JS.extract(img))
 
 
 def test_ppmd_folder_needs_no_size_gate(monkeypatch):
